@@ -5,27 +5,51 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
 
 1. prints the card (``torch.cuda.get_device_name``, ``nvidia-smi`` name and
    power limit) and the torch/CUDA versions;
-2. builds the port's CUDA kernels from ``gpax_torch/csrc`` and times it;
+2. builds the port's CUDA kernels from ``gpax_torch/csrc`` (one nvcc per
+   source, in parallel) and times it;
 3. holds kernel K1 (fused gram) against its plain PyTorch twin on the card
    over RBF/Matérn, X≡Z with scalar and vector noise, a ragged X≠Z, d ∈ {1, 8}
-   and batch ∈ {1, 4}, and times both at n = m = 4096, d = 1 (kernel and
-   twin timed in turns, plain-kernel-kernel-plain);
+   and batch ∈ {1, 4}, and a batch of 1×1 grams larger than one launch's
+   grid, and times both at n = m = 4096, d = 1 (kernel and twin timed in
+   turns, plain-kernel-kernel-plain);
 4. holds kernel K2 (128-tile triangular inverse) and ``blocked_trtri`` built
    on it against the twin, in float64 (the factor path's dtype) and float32,
    at n ∈ {4096, 8192} and a batch of 8 at n = 1024, and times K2, the twin
-   and ``torch.linalg.solve_triangular``;
-5. checks the ExactGP potential and gradient on the card against the CPU
+   and ``torch.linalg.solve_triangular`` (on the whole factor, and on the
+   diagonal tiles alone: K2's library yardstick);
+5. holds kernel K3 (128-tile Cholesky and inverse) against its twin on each
+   leaf of ``chol_inv``, and ``chol_inv`` against ``cholesky_ex`` +
+   ``solve_triangular(L, I)``, in float32 and float64 at m ∈ {128, 1024}
+   and a batch of 8 at m = 1024, on two ill-conditioned RBF tiles (κ ~ 1e6,
+   the sparse GP's first leaf) in both dtypes, with an indefinite tile that
+   must come back NaN, and times K3, the twin and that library pair;
+6. checks the ExactGP potential and gradient on the card against the CPU
    twins at n = 512;
-6. drives the main path: ``gpax_torch.ExactGP(1, "RBF")`` fits NUTS
+7. drives the ExactGP path: ``gpax_torch.ExactGP(1, "RBF")`` fits NUTS
    (100 warmup + 100 draws, tree depth 7) on n = 4096 points of
    sin(2x) + 0.1·noise, then ``predict_in_batches`` on 2048 points, counting
    K1 and K2 launches in each phase;
-7. holds K1 and K2 against their twins at the main path's own shapes and
+8. holds K1 and K2 against their twins at that path's own shapes and
    inputs: the fit's 4096×4096 gram, and predict's grams (4096×4096,
    1024×4096, 1024×1024) and float64 factors for one chunk of posterior
    draws, the chunk sized as ``predict`` sizes it;
-8. prints a JSON line of the kernels, the card's line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+9. drives the viSparseGP path at BASELINE config 3 (bench.py's data and
+   settings: n = 2000, inducing ratio 0.05 "uniform" so m = 100, 3000 SVI
+   steps of 5e-3, then ``predict_in_batches`` on 2001 points in batches of
+   1024), numpy inputs and no ``device`` argument, counting K1 and K3
+   launches in the fit and the predict; then again at n = 20000 (m = 1000,
+   eight K3 leaves per ``chol_inv``, 1000 steps); after each, K1 against
+   its twin on every gram of the fitted model (Kuu, Kuf, the batch of n
+   1×1 grams of the Kff diagonal) and of a predict batch (Kuu, Kuf, Kus,
+   Kss), and K3 on every leaf of that batch's Kuu and capacitance B;
+10. drives the viGP path at BASELINE config 2 (bench.py's 128×128 image,
+    15 % of the pixels, Matérn, 250 steps of 0.05, then the 16384-point
+    grid in batches of 1024), counting K1 and K2 launches, then holds K1
+    and K2 against their twins on the fitted model's own grams and float64
+    factors;
+11. prints a JSON line of the kernels (time, twin time, library time,
+    bound, launches on every path), the card's line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check ends the run with a non-zero exit and no ``ok`` line. It
 refuses to run without CUDA.
@@ -33,6 +57,7 @@ refuses to run without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -43,8 +68,8 @@ import torch
 
 import gpax_torch
 from gpax_torch.ops import build, chol, gram, linalg
-from gpax_torch.ppl import initialize_model
-from gpax_torch.utils import get_keys, host_syncs, reset_host_syncs
+from gpax_torch.ppl import initialize_model, log_density
+from gpax_torch.utils import get_keys, host_syncs, preprocess_sparse_image, reset_host_syncs
 
 N_MAIN = 4096        # training points of the main path (bench.py's n)
 NUM_WARMUP = 100
@@ -53,10 +78,38 @@ MAX_DEPTH = 7
 PREDICT_M = 2048
 PREDICT_BATCH = 1024
 K1_TOL = 1e-5        # K1 vs twin, relative to max|K| (see check_k1)
+K1_MAX_BATCH_CASE = gram._MAX_BATCH + 4465  # a batch of 1×1 grams over two launches
 # K2 vs twin, relative to max|W|, and ‖W·L − I‖_max of blocked_trtri, on
 # well-conditioned factors (see check_k2)
 K2_REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 K2_RESID_TOL = {torch.float32: 5e-3, torch.float64: 1e-10}
+# K3 vs twin, relative to max|L| and max|W|: at least this, or twice the
+# first-order bound 128·eps·κ₂(L) of a factorization and a triangular
+# inversion of the tile at hand (see k3_compare)
+K3_REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# chol_inv vs cholesky_ex + solve_triangular through the recursion's GEMMs,
+# relative to max|L| and max|W|, and ‖W·L − I‖_max, ‖L·Lᵀ − K‖_max/max|K|,
+# on matrices of κ ≤ ~9 (see check_k3)
+CHOL_INV_TOL = {torch.float32: 1e-3, torch.float64: 1e-11}
+CHOL_INV_RESID_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
+
+# BASELINE config 3 (bench.py:433-468) and its wider inducing set
+SPARSE_RATIO = 0.05
+SPARSE_PHASES = (("config3", 2000, 3000), ("m1000", 20000, 1000))
+SPARSE_GRID = 2001
+SPARSE_BATCH = 1024
+SPARSE_RMSE_MAX = 0.005           # the JAX package on the CPU: 0.00231
+SPARSE_NOISE_RANGE = (0.00125, 0.005)  # the JAX package on the CPU: 0.00251
+# BASELINE config 2 (bench.py:374-430)
+VIGP_SIZE, VIGP_STEPS, VIGP_STEP_SIZE, VIGP_BATCH = 128, 250, 0.05, 1024
+VIGP_RMSE_MAX = 0.01              # the JAX package on the CPU: 0.00136
+
+# the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
+# bytes/s, and the highest FLOP/s the card offers for each dtype without a
+# change of precision: float32 outside the tensor cores (TF32 would round),
+# float64 on them (DMMA; cuBLAS runs the recursion's float64 GEMMs there)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def fail(msg: str) -> None:
@@ -88,6 +141,37 @@ def paired_ms(kernel_fn, plain_fn, iters: int = 20):
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+
+
+def bound(bytes_moved: float, flops: float, dtype=torch.float32) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the dtype's peak."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def chol_inv_bound(B: int, m: int, dtype) -> dict:
+    """K3's work on B matrices of m×m: read K, write L and W; m³/3 flops for
+    the Cholesky and m³/3 for the triangular inverse."""
+    return bound(3 * B * m * m * dtype.itemsize, B * 2 * m**3 / 3, dtype)
+
+
+def reset_counts() -> None:
+    torch.cuda.synchronize()
+    gram.launches = chol.launches = chol.chol_inv_launches = 0
+
+
+def counts() -> dict:
+    return {"gram": gram.launches, "trtri": chol.launches, "cholinv": chol.chol_inv_launches}
+
+
+def require_launches(path: str, launched: dict, kernels) -> None:
+    for phase, c in launched.items():
+        for k in kernels:
+            if c[k] <= 0:
+                fail(f"kernel {k} never launched during {path} {phase}")
 
 
 def device_phase() -> str:
@@ -136,35 +220,43 @@ def check_k1(dev) -> dict:
             nz = torch.zeros((B, n), device=dev)
         worst = max(worst, k1_compare(f"{kind:8s} d={d} B={B} {n}x{m} noise={noise:6s}",
                                       Xs, Zs, nz, same, kind))
+    # more matrices than one launch's grid takes (the sparse GP's k(x, x)
+    # diagonal is a batch of n 1×1 grams): the wrapper launches per slice
+    Xd = torch.rand((K1_MAX_BATCH_CASE, 1, 1), generator=g, device=dev)
+    worst = max(worst, k1_compare(f"rbf d=1 B={K1_MAX_BATCH_CASE} 1x1 noise=0", Xd, Xd,
+                                  torch.zeros((K1_MAX_BATCH_CASE, 1), device=dev), True))
     X = (torch.rand((1, N_MAIN, 1), generator=g, device=dev) * 4.0 - 2.0)
     nz = torch.full((1, N_MAIN), 0.1, device=dev)
     worst = max(worst, k1_compare(f"rbf d=1 B=1 {N_MAIN}x{N_MAIN} noise=scalar", X, X, nz, True))
     ms, plain = paired_ms(lambda: gram.gram_unscaled(X, X, nz, "rbf", True),
                           lambda: gram.gram_twin(X, X, nz, "rbf", True))
-    print(f"K1 time n=m={N_MAIN} d=1 rbf: kernel {ms:.4f} ms, twin {plain:.4f} ms", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    # read X, Z and the noise once, write the gram; per element 2d + 4 flops
+    # (cross term, r², scale) and one exp; no one PyTorch call computes it
+    b = bound(4 * (2 * N_MAIN + N_MAIN + N_MAIN * N_MAIN), 6 * N_MAIN * N_MAIN)
+    print(f"K1 time n=m={N_MAIN} d=1 rbf: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
 
 
 def k1_compare(label: str, Xs, Zs, nz, same: bool, kind: str = "rbf") -> float:
-    """max|K1 − twin| on one input, failing past K1_TOL·max|K|."""
+    """max|K1 − twin| on one input, failing past K1_TOL·max|K|, a tolerance
+    set for squared norms of at most 30 (see check_k1) and scaled with them
+    beyond: r²'s rounding grows with ‖xs‖² + ‖zs‖²."""
     out = gram.gram_unscaled(Xs, Zs, nz, kind, same)
     ref = gram.gram_twin(Xs, Zs, nz, kind, same)
     err = (out - ref).abs().max().item()
     rel = err / ref.abs().max().item()
-    print(f"K1 {label} max|err|={err:.3e} rel={rel:.3e} (tol {K1_TOL:.0e})", flush=True)
-    if not (rel <= K1_TOL):
+    norms = (Xs * Xs).sum(-1).max().item() + (Zs * Zs).sum(-1).max().item()
+    tol = K1_TOL * max(1.0, norms / 60.0)
+    print(f"K1 {label} max|err|={err:.3e} rel={rel:.3e} (tol {tol:.1e})", flush=True)
+    if not (rel <= tol):
         fail(f"K1 disagrees with its twin at {label}: rel {rel}")
     return err
 
 
 def _spd_factor(n: int, B: int, seed: int, dev, dtype) -> torch.Tensor:
-    """Cholesky factors of well-conditioned SPD matrices A·Aᵀ/n + ½I."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    A = torch.randn((B, n, n), generator=g, device=dev, dtype=dtype)
-    K = A @ A.mT / n
-    K.diagonal(dim1=-2, dim2=-1).add_(0.5)
-    del A
-    return torch.linalg.cholesky(K).contiguous()
+    """Cholesky factors of the SPD matrices of :func:`_spd`."""
+    return torch.linalg.cholesky(_spd(n, B, seed, dev, dtype)).contiguous()
 
 
 def twin_trtri(L: torch.Tensor) -> torch.Tensor:
@@ -215,13 +307,173 @@ def check_k2(dev) -> dict:
             t_solve = cuda_ms(lambda: torch.linalg.solve_triangular(L, eye, upper=False), iters)
             t_k2, t_k2_twin = paired_ms(lambda: chol.tile_tri_inv(L),
                                         lambda: chol.tile_tri_inv_twin(L), iters)
+            # the library call on the diagonal tiles alone, gathered beforehand
+            T = n // chol.TILE
+            tiles = L.view(B, T, chol.TILE, T, chol.TILE).diagonal(dim1=1, dim2=3)
+            tiles = tiles.permute(0, 3, 1, 2).contiguous()
+            eye_t = torch.eye(chol.TILE, device=dev, dtype=dtype).expand_as(tiles)
+            t_lib = cuda_ms(lambda: torch.linalg.solve_triangular(tiles, eye_t, upper=False), iters)
+            # each diagonal tile read once and its inverse written once (the
+            # wrapper's zero fill of the rest of W is not the function's
+            # work); 128³/3 flops per tile
+            b = bound(2 * B * T * chol.TILE**2 * L.element_size(), B * T * chol.TILE**3 / 3, dtype)
             print(f"K2 time {name} n={n} B={B}: tiles K2 {t_k2:.4f} ms, tiles twin "
-                  f"{t_k2_twin:.4f} ms | blocked_trtri K2 {t_blk:.4f} ms, twin {t_twin:.4f} ms, "
-                  f"solve_triangular(L, I) {t_solve:.4f} ms", flush=True)
+                  f"{t_k2_twin:.4f} ms, tiles solve_triangular {t_lib:.4f} ms, bound "
+                  f"{b['bound_ms']:.5f} ms ({b['bound_by']}) | blocked_trtri K2 {t_blk:.4f} ms, "
+                  f"twin {t_twin:.4f} ms, solve_triangular(L, I) {t_solve:.4f} ms", flush=True)
             if (dtype, n, B) == (torch.float64, 4096, 1):
-                timing = {"ms": t_k2, "plain_ms": t_k2_twin}
-            del L, W, eye
+                timing = {"ms": t_k2, "plain_ms": t_k2_twin, "library_ms": t_lib, **b}
+            del L, W, eye, tiles, eye_t
             torch.cuda.empty_cache()
+    return {"max_abs_err": worst, **timing}
+
+
+def _spd(n: int, B: int, seed: int, dev, dtype) -> torch.Tensor:
+    """Well-conditioned SPD matrices A·Aᵀ/n + ½I (κ ≤ ~9)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, n, n), generator=g, device=dev, dtype=dtype)
+    K = A @ A.mT / n
+    K.diagonal(dim1=-2, dim2=-1).add_(0.5)
+    return K
+
+
+def twin_chol_inv(K):
+    """chol_inv with the twin in place of K3 at every leaf."""
+    k3 = chol.tile_chol_inv
+    chol.tile_chol_inv = chol.tile_chol_inv_twin
+    try:
+        return chol.chol_inv(K)
+    finally:
+        chol.tile_chol_inv = k3
+
+
+@contextlib.contextmanager
+def captured(module, name: str):
+    """The arguments of every call of ``module.name`` (a kernel's wrapper)
+    while the block runs, as the path's own code makes them."""
+    calls, fn = [], getattr(module, name)
+
+    def capture(*args):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return fn(*args)
+
+    setattr(module, name, capture)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def k1_compare_calls(label: str, calls) -> None:
+    """K1 against its twin on each captured call of ``gram_unscaled``."""
+    for i, (Xs, Zs, nz, kind, same) in enumerate(calls):
+        (B, n, d), m = Xs.shape, Zs.shape[1]
+        k1_compare(f"{label} gram {i}: {kind} d={d} B={B} {n}x{m} noise={same}",
+                   Xs, Zs, nz, same, kind)
+
+
+def k3_compare(label: str, A: torch.Tensor) -> float:
+    """K3 against its twin on tiles A (B, 128, 128), relative to max|L| and
+    max|W|. Tolerance: K3_REL_TOL, or 2·128·eps·κ₂(L) of the worst tile
+    where that is larger: each side is within the first-order error bound
+    n·eps·κ(L) of a Cholesky factorization and a triangular inversion, which
+    an ill-conditioned leaf of a real Kuu reaches, and the two round
+    differently (rsqrt and FMA chains against cuSOLVER and cuBLAS)."""
+    L, W = chol.tile_chol_inv(A)
+    Lt, Wt = chol.tile_chol_inv_twin(A)
+    kappa = (torch.linalg.matrix_norm(Lt, ord=2) * torch.linalg.matrix_norm(Wt, ord=2)).max().item()
+    tol = max(K3_REL_TOL[A.dtype], 2 * chol.TILE * torch.finfo(A.dtype).eps * kappa)
+    err_L = (L - Lt).abs().max().item()
+    err_W = (W - Wt).abs().max().item()
+    rel_L = err_L / Lt.abs().max().item()
+    rel_W = err_W / Wt.abs().max().item()
+    print(f"K3 {label}: L rel={rel_L:.3e} W rel={rel_W:.3e} (tol {tol:.1e}, kappa2(L) {kappa:.3e})",
+          flush=True)
+    if not (rel_L <= tol and rel_W <= tol):
+        fail(f"K3 disagrees with its twin at {label}")
+    return max(err_L, err_W)
+
+
+def check_k3(dev) -> dict:
+    """K3 against its twin on every leaf of chol_inv, and chol_inv against
+    ``cholesky_ex`` + ``solve_triangular(L, I)``, in float32 and float64, at
+    m ∈ {128, 1024} and a batch of 8 at m = 1024, on A·Aᵀ/m + ½I (κ ≤ ~9;
+    tolerances CHOL_INV_TOL relative to max|L| and max|W| and
+    CHOL_INV_RESID_TOL on ‖W·L − I‖ and ‖L·Lᵀ − K‖/max|K|: the recursion's
+    GEMMs add rounding of order m·eps·κ to the leaves'). Then an indefinite
+    tile, which must come back NaN. Times K3, its twin and the library pair
+    on the leaves, and chol_inv, its twin recursion and the library pair on
+    the whole matrix."""
+    worst = 0.0
+    timing = {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        for m, B in ((128, 1), (1024, 1), (1024, 8)):
+            K = _spd(m, B, m + B, dev, dtype)
+            with captured(chol, "tile_chol_inv") as leaves:
+                L, W = chol.chol_inv(K)
+            for i, (A,) in enumerate(leaves):
+                worst = max(worst, k3_compare(f"{name} m={m} B={B} leaf {i}", A))
+            L_ref, _ = torch.linalg.cholesky_ex(K)
+            eye = torch.eye(m, device=dev, dtype=dtype)
+            W_ref = torch.linalg.solve_triangular(L_ref, eye.expand_as(K), upper=False)
+            rel_L = ((L - L_ref).abs().max() / L_ref.abs().max()).item()
+            rel_W = ((W - W_ref).abs().max() / W_ref.abs().max()).item()
+            r_inv = (W @ L - eye).abs().max().item()
+            r_fac = ((L @ L.mT - K).abs().max() / K.abs().max()).item()
+            print(f"chol_inv {name} m={m} B={B}: {len(leaves)} leaves, L rel={rel_L:.3e} "
+                  f"W rel={rel_W:.3e} (tol {CHOL_INV_TOL[dtype]:.0e}) |WL-I|max={r_inv:.3e} "
+                  f"|LLt-K|/|K|={r_fac:.3e} (tol {CHOL_INV_RESID_TOL[dtype]:.0e})", flush=True)
+            if not (rel_L <= CHOL_INV_TOL[dtype] and rel_W <= CHOL_INV_TOL[dtype]
+                    and r_inv <= CHOL_INV_RESID_TOL[dtype]
+                    and r_fac <= CHOL_INV_RESID_TOL[dtype]):
+                fail(f"chol_inv check failed at {name} m={m} B={B}")
+
+            tiles = K[:, :chol.TILE, :chol.TILE].contiguous()
+            eye_t = torch.eye(chol.TILE, device=dev, dtype=dtype).expand_as(tiles)
+            t_k3, t_twin = paired_ms(lambda: chol.tile_chol_inv(tiles),
+                                     lambda: chol.tile_chol_inv_twin(tiles))
+            t_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+                torch.linalg.cholesky_ex(tiles)[0], eye_t, upper=False))
+            b = chol_inv_bound(B, chol.TILE, dtype)
+            line = (f"K3 time {name} B={B} one leaf: K3 {t_k3:.4f} ms, twin {t_twin:.4f} ms, "
+                    f"cholesky_ex+solve_triangular {t_lib:.4f} ms, bound {b['bound_ms']:.6f} ms "
+                    f"({b['bound_by']})")
+            if m > chol.TILE:
+                eye_b = eye.expand_as(K)
+                t_ci, t_ci_twin = paired_ms(lambda: chol.chol_inv(K), lambda: twin_chol_inv(K), 10)
+                t_ci_lib = cuda_ms(lambda: torch.linalg.solve_triangular(
+                    torch.linalg.cholesky_ex(K)[0], eye_b, upper=False), 10)
+                bm = chol_inv_bound(B, m, dtype)
+                line += (f" | chol_inv m={m}: K3 leaves {t_ci:.4f} ms, twin leaves "
+                         f"{t_ci_twin:.4f} ms, cholesky_ex+solve_triangular {t_ci_lib:.4f} ms, "
+                         f"bound {bm['bound_ms']:.4f} ms ({bm['bound_by']})")
+            print(line, flush=True)
+            # the kernels line: one float64 leaf, as config 3 launches it
+            if (dtype, m, B) == (torch.float64, 128, 1):
+                timing = {"ms": t_k3, "plain_ms": t_twin, "library_ms": t_lib, **b}
+            del K, L, W, L_ref, W_ref, leaves
+            torch.cuda.empty_cache()
+    # ill-conditioned tiles as the sparse GP's first leaf sees them: RBF
+    # grams of 128 inducing points at the spacing 4/m of bench.py's data,
+    # near the fitted ℓ and k_scale, plus the float32 jitter 4·m·eps
+    eps32 = torch.finfo(torch.float32).eps
+    for spacing, ls, ks, m in ((0.004, 1.15, 2.0, 1000), (0.04, 0.8, 0.9, 100)):
+        x = spacing * torch.arange(chol.TILE, device=dev, dtype=torch.float64)
+        K = ks * torch.exp(-0.5 * ((x[:, None] - x[None, :]) / ls) ** 2)
+        K.diagonal().add_(gpax_torch.get_config().default_jitter + 4 * m * eps32)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).replace("torch.", "")
+            k3_compare(f"{name} RBF tile spacing {spacing} l={ls} k_scale={ks} jitter(m={m})",
+                       K.to(dtype)[None].contiguous())
+    A = _spd(chol.TILE, 2, 3, dev, torch.float32)
+    A[1, 60, 60] = -1.0
+    L, W = chol.tile_chol_inv(A)
+    nan_ok = (bool(torch.isfinite(L[0]).all()) and bool(torch.isfinite(W[0]).all())
+              and bool(torch.isnan(L[1, 60:, 60]).all()) and not bool(torch.isfinite(W[1, 60:]).any()))
+    print(f"K3 indefinite tile: NaN from the failing pivot on: {nan_ok}", flush=True)
+    if not nan_ok:
+        fail("K3 does not propagate NaN from an indefinite pivot")
     return {"max_abs_err": worst, **timing}
 
 
@@ -267,8 +519,7 @@ def main_path(dev) -> dict:
     k_fit, k_pred = get_keys(0)
     gp = gpax_torch.ExactGP(1, "RBF")
 
-    torch.cuda.synchronize()
-    gram.launches = chol.launches = 0
+    reset_counts()
     reset_host_syncs()
     t0 = time.perf_counter()
     gp.fit(k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES,
@@ -276,7 +527,7 @@ def main_path(dev) -> dict:
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     syncs = host_syncs()
-    fit_launch = {"gram": gram.launches, "trtri": chol.launches}
+    fit_launch = counts()
 
     samples = gp.get_samples()
     stats = gp.mcmc.get_extra_fields()
@@ -287,13 +538,12 @@ def main_path(dev) -> dict:
 
     X_new = torch.linspace(-2, 2, PREDICT_M, device=dev)[:, None]
     chunk = gp._chunk_size(NUM_SAMPLES, PREDICT_BATCH, with_test_cov=True)
-    torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     mean, draws = gp.predict_in_batches(k_pred, X_new, batch_size=PREDICT_BATCH, noiseless=True)
     torch.cuda.synchronize()
     pred_s = time.perf_counter() - t0
-    total_launch = {"gram": gram.launches, "trtri": chol.launches}
-    pred_launch = {k: total_launch[k] - fit_launch[k] for k in total_launch}
+    pred_launch = counts()
 
     rmse = float(np.sqrt(np.mean((mean.numpy() - np.sin(2 * X_new[:, 0].cpu().numpy())) ** 2)))
     summary = {
@@ -321,11 +571,9 @@ def main_path(dev) -> dict:
         fail(f"predict output: shapes {tuple(mean.shape)}, {tuple(draws.shape)} or non-finite")
     if not rmse <= 0.03:
         fail(f"posterior RMSE {rmse} > 0.03")
-    for phase, counts in (("fit", fit_launch), ("predict", pred_launch)):
-        for k, v in counts.items():
-            if v <= 0:
-                fail(f"kernel {k} never launched during {phase}")
-    return total_launch, gp, chunk
+    launched = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("ExactGP", launched, ("gram", "trtri"))
+    return launched, gp, chunk
 
 
 def check_main_shapes(gp, chunk: int) -> None:
@@ -371,20 +619,195 @@ def check_main_shapes(gp, chunk: int) -> None:
     torch.cuda.empty_cache()
 
 
+def sparse_data(n: int):
+    """bench.py's config-3 data: x ~ U(0, 4), y = sin(3x)·e^(−0.3x) + 0.05ε."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 4, n)
+    y = np.sin(3 * X) * np.exp(-0.3 * X) + 0.05 * rng.normal(size=n)
+    return X, y
+
+
+def sparse_path(label: str, n: int, num_steps: int):
+    """viSparseGP on bench.py's data and settings: numpy inputs and no
+    ``device`` argument (the card by default), ratio 0.05 "uniform", Adam
+    5e-3, then predict_in_batches on linspace(0, 4, 2001) in batches of
+    1024. Counts K1/K3 launches in the fit and the predict."""
+    X, y = sparse_data(n)
+    key_fit, key_pred = get_keys(0)
+    model = gpax_torch.viSparseGP(input_dim=1, kernel="RBF")
+    reset_counts()
+    reset_host_syncs()
+    t0 = time.perf_counter()
+    model.fit(key_fit, X, y, inducing_points_ratio=SPARSE_RATIO,
+              inducing_points_selection="uniform", num_steps=num_steps,
+              print_summary=False, progress_bar=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launch, syncs = counts(), host_syncs()
+    losses = model.loss.cpu()
+    med = {k: v.detach().cpu() for k, v in model.get_samples().items()}
+
+    grid = np.linspace(0, 4, SPARSE_GRID).astype(np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, var = model.predict_in_batches(key_pred, grid, batch_size=SPARSE_BATCH)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_launch = counts()
+    truth = np.sin(3 * grid) * np.exp(-0.3 * grid)
+    rmse = float(np.sqrt(np.mean((mean.numpy() - truth) ** 2)))
+    noise = med["noise"].item()
+    summary = {
+        "n": n, "m": int(model.Xu.shape[0]), "num_steps": num_steps, "fit_s": fit_s,
+        "svi_steps_per_s": num_steps / fit_s, "host_syncs_per_step": syncs / num_steps,
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "median": {k: v.tolist() for k, v in med.items()},
+        "predict_points": SPARSE_GRID, "predict_s": pred_s,
+        "predict_points_per_s": SPARSE_GRID / pred_s, "rmse": rmse,
+        "var_min": var.min().item(), "var_max": var.max().item(),
+        "launches_fit": fit_launch, "launches_predict": pred_launch,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print(f"viSparseGP {label}: " + json.dumps(summary), flush=True)
+    finite = (bool(torch.isfinite(losses).all()) and bool(torch.isfinite(mean).all())
+              and bool(torch.isfinite(var).all())
+              and all(bool(torch.isfinite(v).all()) for v in med.values()))
+    if not (finite and mean.shape == var.shape == (SPARSE_GRID,)):
+        fail(f"viSparseGP {label}: non-finite values or shapes {tuple(mean.shape)}")
+    require_launches(f"viSparseGP {label}", {"fit": fit_launch, "predict": pred_launch},
+                     ("gram", "cholinv"))
+    if label == "config3":
+        if not rmse <= SPARSE_RMSE_MAX:
+            fail(f"viSparseGP {label}: RMSE {rmse} > {SPARSE_RMSE_MAX}")
+        if not SPARSE_NOISE_RANGE[0] <= noise <= SPARSE_NOISE_RANGE[1]:
+            fail(f"viSparseGP {label}: noise {noise} outside {SPARSE_NOISE_RANGE}")
+    elif not losses[-1] < losses[0]:
+        fail(f"viSparseGP {label}: the last loss is not below the first")
+    return {"fit": fit_launch, "predict": pred_launch}, model
+
+
+def check_sparse_shapes(label: str, model) -> None:
+    """K1 and K3 against their twins on the fitted model's own inputs. K1:
+    every gram of one evaluation of the model (Kuu, Kuf and the batch of n
+    1×1 grams of the Kff diagonal) and of one predict batch (Kuu, Kuf, Kus,
+    Kss). K3: every leaf of that batch's factorizations, Kuu and the
+    capacitance B, in float64 as the path runs them, and Kuu's first leaf
+    cast to float32."""
+    X, y = model.X_train, model.y_train
+    X_new = torch.linspace(0, 4, SPARSE_GRID, device=X.device)[:SPARSE_BATCH, None]
+    med = model.get_samples()
+    with torch.no_grad(), captured(gram, "gram_unscaled") as grams:
+        log_density(model.model, (X, y), {"Xu": model.Xu}, med)
+    k1_compare_calls(f"viSparseGP {label} model", grams)
+    with torch.no_grad(), captured(gram, "gram_unscaled") as grams, \
+            captured(chol, "tile_chol_inv") as leaves:
+        model.get_mvn_posterior(X_new, med)
+    k1_compare_calls(f"viSparseGP {label} predict", grams)
+    del grams
+    half = len(leaves) // 2
+    for i, (A,) in enumerate(leaves):
+        which = "Kuu" if i < half else "B"
+        k3_compare(f"viSparseGP {label} {which} leaf {i % half}", A)
+    k3_compare(f"viSparseGP {label} Kuu leaf 0 in float32", leaves[0][0].float())
+
+
+def check_vigp_shapes(model, X_new) -> None:
+    """K1 and K2 against their twins on the fitted viGP's own inputs: every
+    gram of one evaluation of the model (the Matérn 2-D k_XX) and of one
+    predict batch (k_pp, k_pX, k_XX); K2 on every float64 factor those
+    evaluations hand it (padded to 20 tiles), with ExactGP's predict
+    tolerances (see check_main_shapes)."""
+    X, y = model.X_train, model.y_train
+    X_new = model._set_data(X_new, device=X.device)
+    med = model.get_samples()
+    with torch.no_grad(), captured(gram, "gram_unscaled") as grams, \
+            captured(chol, "tile_tri_inv") as factors:
+        log_density(model.model, (X, y), {}, med)
+        model.get_mvn_posterior(X_new, med)
+    k1_compare_calls("viGP config2", grams)
+    del grams
+    for i, (L,) in enumerate(factors):
+        k2_compare(f"viGP config2 float64 factor {i} B={L.shape[0]} n={L.shape[-1]}", L,
+                   chol.blocked_trtri(L), 1e-7, 1e-6)
+
+
+def vigp_path():
+    """viGP on bench.py's config-2 image (Matérn, 250 steps of 0.05), then
+    the 16384-point grid in batches of 1024. Counts K1/K2 launches."""
+    rng = np.random.default_rng(0)
+    xx, yy = np.meshgrid(np.arange(VIGP_SIZE), np.arange(VIGP_SIZE))
+    truth = np.sin(xx / 16.0) * np.cos(yy / 21.0) + 1.5
+    mask = rng.uniform(size=truth.shape) < 0.15
+    coords, values, full_grid = preprocess_sparse_image(np.where(mask, truth, 0.0))
+    key_fit, key_pred = get_keys(0)
+    model = gpax_torch.viGP(input_dim=2, kernel="Matern")
+    reset_counts()
+    reset_host_syncs()
+    t0 = time.perf_counter()
+    model.fit(key_fit, coords, values, num_steps=VIGP_STEPS, step_size=VIGP_STEP_SIZE,
+              print_summary=False, progress_bar=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launch, syncs = counts(), host_syncs()
+    losses = model.loss.cpu()
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, var = model.predict_in_batches(key_pred, full_grid, batch_size=VIGP_BATCH)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_launch = counts()
+    rmse = float(np.sqrt(np.mean((mean.numpy().reshape(truth.shape) - truth) ** 2)))
+    summary = {
+        "n_train": int(values.shape[0]), "num_steps": VIGP_STEPS, "fit_s": fit_s,
+        "svi_steps_per_s": VIGP_STEPS / fit_s, "host_syncs_per_step": syncs / VIGP_STEPS,
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+        "median": {k: v.detach().cpu().tolist() for k, v in model.get_samples().items()},
+        "predict_points": int(full_grid.shape[0]), "predict_s": pred_s,
+        "predict_points_per_s": full_grid.shape[0] / pred_s, "rmse": rmse,
+        "launches_fit": fit_launch, "launches_predict": pred_launch,
+    }
+    print("viGP config2: " + json.dumps(summary), flush=True)
+    if not (bool(torch.isfinite(losses).all()) and bool(torch.isfinite(mean).all())
+            and bool(torch.isfinite(var).all())):
+        fail("viGP config2: non-finite values")
+    require_launches("viGP config2", {"fit": fit_launch, "predict": pred_launch},
+                     ("gram", "trtri"))
+    if not rmse <= VIGP_RMSE_MAX:
+        fail(f"viGP config2: RMSE {rmse} > {VIGP_RMSE_MAX}")
+    return {"fit": fit_launch, "predict": pred_launch}, model, full_grid[:VIGP_BATCH]
+
+
 def main() -> None:
     smi = device_phase()
     dev = torch.device("cuda", 0)
     build_phase()
     k1 = check_k1(dev)
     k2 = check_k2(dev)
+    k3 = check_k3(dev)
     check_potential(dev)
-    launches, gp, chunk = main_path(dev)
+    paths = {}
+    paths["ExactGP"], gp, chunk = main_path(dev)
     check_main_shapes(gp, chunk)
+    del gp
+    for label, n, steps in SPARSE_PHASES:
+        paths[f"viSparseGP {label}"], model = sparse_path(label, n, steps)
+        check_sparse_shapes(label, model)
+        del model
+        torch.cuda.empty_cache()
+    paths["viGP config2"], model, X_new = vigp_path()
+    check_vigp_shapes(model, X_new)
+
+    def launches(k):
+        by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}
+        return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
     kernels = [
         {"name": "gram", "route": "cuda", "source": "gpax_torch/csrc/gram.cu",
-         "replaces": "gpax_tpu/ops/pallas_gram.py:64", "launches": launches["gram"], **k1},
+         "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram"), **k1},
         {"name": "tile_tri_inv", "route": "cuda", "source": "gpax_torch/csrc/trtri.cu",
-         "replaces": "gpax_tpu/ops/chol.py:221", "launches": launches["trtri"], **k2},
+         "replaces": "gpax_tpu/ops/chol.py:221", **launches("trtri"), **k2},
+        {"name": "tile_chol_inv", "route": "cuda", "source": "gpax_torch/csrc/cholinv.cu",
+         "replaces": "gpax_tpu/ops/chol.py:55", **launches("cholinv"), **k3},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -10,18 +10,14 @@
 // torch.matmul, as the JAX package leaves it to XLA.
 //
 // Layout: 128 threads per block, thread j owns column j of the tile's
-// inverse and runs the forward substitution
-//
-//     W[i][j] = (delta_ij - sum_{k<i} L[i][k] W[k][j]) / L[i][i]
-//
-// which is the Pallas kernel's row recurrence read column by column. L's
+// inverse and runs the forward substitution of tile_inv.cuh (shared with
+// K3), the Pallas kernel's row recurrence read column by column. L's
 // tile sits in dynamic shared memory. In float32 W's tile sits there too
 // (2 x 64 KB). In float64 the two tiles would take 256 KB, more than an SM's
 // 227 KB, so L's tile (128 KB) stays in shared memory and each thread keeps
 // its column of W in the output itself, in global memory: the thread reads
 // back only what it wrote, through L1, and a warp's loads of one row are
-// coalesced. In the inner loop all threads of a warp read the same L[i][k]
-// (a broadcast) and neighbouring W[k][j].
+// coalesced.
 //
 // What bounds it on an H100: a thread does 128^2 / 2 FMAs per tile, and a
 // block of 4 warps gives each scheduler one warp, which issues each term's
@@ -41,12 +37,11 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_inv.cuh"
+
 namespace {
 
-constexpr int kT = 128;
-
-__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
-__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+constexpr int kT = gpax::kTile;
 
 template <typename T>
 struct Tiles {
@@ -69,11 +64,7 @@ tile_tri_inv_kernel(const T* __restrict__ L, T* __restrict__ W, int n) {
   for (int i = 0; i < kT; ++i) Ls[i * kT + j] = L[base + (size_t)i * n + j];
   __syncthreads();
 
-  for (int i = 0; i < kT; ++i) {
-    T acc = 0;
-    for (int k = 0; k < i; ++k) acc = fma_(Ls[i * kT + k], Wt[k * ldw + j], acc);
-    Wt[i * ldw + j] = ((i == j ? T(1) : T(0)) - acc) / Ls[i * kT + i];
-  }
+  gpax::tile_forward_subst(Ls, Wt, ldw, j);
   // each thread reads back only the column it wrote: no barrier needed
   if (Tiles<T>::w_in_smem)
     for (int i = 0; i < kT; ++i) W[base + (size_t)i * n + j] = Wt[i * kT + j];

@@ -1,5 +1,12 @@
 from . import constraints
-from .distributions import Distribution, HalfNormal, LogNormal, MultivariateNormal, Normal
+from .distributions import (
+    Distribution,
+    HalfNormal,
+    LogNormal,
+    LowRankMultivariateNormal,
+    MultivariateNormal,
+    Normal,
+)
 from .transforms import ExpTransform, IdentityTransform, Transform, biject_to
 
 __all__ = [
@@ -13,4 +20,5 @@ __all__ = [
     "LogNormal",
     "HalfNormal",
     "MultivariateNormal",
+    "LowRankMultivariateNormal",
 ]

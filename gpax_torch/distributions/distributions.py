@@ -1,4 +1,4 @@
-"""Distributions of the ExactGP path (counterpart of
+"""Distributions of the ExactGP and sparse GP paths (counterpart of
 ``gpax_tpu/distributions/distributions.py``).
 
 Shapes follow the numpyro convention::
@@ -31,6 +31,15 @@ def _as(x) -> torch.Tensor:
 
 def _randn(key: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=key, device=key.device, dtype=like.dtype)
+
+
+def _batched_tri_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``solve_triangular(L, b[..., None])[..., 0]`` with L's and b's batch
+    dims broadcast against each other (``distributions.py:32-44``)."""
+    batch = _bshape(b.shape[:-1], L.shape[:-2])
+    return torch.linalg.solve_triangular(
+        L.expand(batch + L.shape[-2:]), b.expand(batch + b.shape[-1:]).unsqueeze(-1),
+        upper=False)[..., 0]
 
 
 class Distribution:
@@ -178,10 +187,7 @@ class MultivariateNormal(Distribution):
 
             return mvn_log_prob_centered(self._covariance, diff)
         L = self.scale_tril
-        batch = _bshape(diff.shape[:-1], L.shape[:-2])
-        w = torch.linalg.solve_triangular(
-            L.expand(batch + L.shape[-2:]),
-            diff.expand(batch + diff.shape[-1:]).unsqueeze(-1), upper=False)[..., 0]
+        w = _batched_tri_solve(L, diff)
         maha = (w * w).sum(-1)
         logdet = torch.log(torch.abs(L.diagonal(dim1=-2, dim2=-1))).sum(-1)
         return -0.5 * (maha + self.event_shape[0] * _LOG_2PI) - logdet
@@ -197,3 +203,60 @@ class MultivariateNormal(Distribution):
     @property
     def covariance_matrix(self):
         return self.scale_tril @ self.scale_tril.mT
+
+
+class LowRankMultivariateNormal(Distribution):
+    """N(loc, W·Wᵀ + D) with W (…, n, m) and D diagonal (…, n): Woodbury and
+    determinant-lemma ``log_prob`` in O(n·m² + m³), never O(n³)
+    (``distributions.py:436-495``; the sparse GP's likelihood).
+
+    The m×m capacitance I + Wᵀ·D⁻¹·W is formed, factored by the library
+    Cholesky (``cholesky_ex``, as JAX uses ``jnp.linalg.cholesky``) and
+    solved in float64 whatever W's dtype, and ``log_prob`` returns the
+    value's dtype, a departure from the JAX package's float32: κ(C) grows as
+    ‖W‖²/D, and the sparse GP's fit at m = 1000 reaches κ(C) 3.4e6, where a
+    float32 capacitance turned the fit non-finite at step 992 (PERF.md).
+    Failure is read from ``info`` and gives NaN, as JAX's does.
+    """
+
+    support = constraints.real_vector
+
+    def __init__(self, loc, cov_factor, cov_diag):
+        self.cov_factor = cov_factor
+        self.cov_diag = torch.as_tensor(cov_diag, dtype=cov_factor.dtype,
+                                        device=cov_factor.device)
+        self.loc = torch.as_tensor(loc, dtype=cov_factor.dtype, device=cov_factor.device)
+        n = cov_factor.shape[-2]
+        self.event_shape = (n,)
+        self.batch_shape = _bshape(self.loc.shape[:-1], cov_factor.shape[:-2],
+                                   self.cov_diag.shape[:-1])
+
+    def sample(self, key, sample_shape=()):
+        n, m = self.cov_factor.shape[-2:]
+        shape = tuple(sample_shape) + self.batch_shape
+        eps_m = _randn(key, shape + (m,), self.cov_factor)
+        eps_n = _randn(key, shape + (n,), self.cov_factor)
+        return (self.loc + (self.cov_factor @ eps_m.unsqueeze(-1)).squeeze(-1)
+                + torch.sqrt(self.cov_diag) * eps_n)
+
+    def log_prob(self, value):
+        diff = (value - self.loc).double()
+        D, W = self.cov_diag.double(), self.cov_factor.double()
+        C = W.mT @ (W / D[..., :, None])
+        C.diagonal(dim1=-2, dim2=-1).add_(1.0)
+        L_C, info = torch.linalg.cholesky_ex(C)
+        L_C = torch.where((info == 0)[..., None, None], L_C, torch.nan)
+        Dinv_diff = diff / D
+        w = _batched_tri_solve(L_C, (W.mT @ Dinv_diff.unsqueeze(-1)).squeeze(-1))
+        maha = (diff * Dinv_diff).sum(-1) - (w * w).sum(-1)
+        logdet = (2.0 * torch.log(torch.abs(L_C.diagonal(dim1=-2, dim2=-1))).sum(-1)
+                  + torch.log(D).sum(-1))
+        return (-0.5 * (maha + logdet + self.event_shape[0] * _LOG_2PI)).to(value.dtype)
+
+    @property
+    def mean(self):
+        return self.loc.expand(self.batch_shape + self.event_shape)
+
+    @property
+    def variance(self):
+        return (self.cov_factor**2).sum(-1) + self.cov_diag

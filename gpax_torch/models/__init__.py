@@ -1,3 +1,5 @@
 from .gp import ExactGP
+from .sparse_gp import viSparseGP
+from .vigp import viGP
 
-__all__ = ["ExactGP"]
+__all__ = ["ExactGP", "viGP", "viSparseGP"]

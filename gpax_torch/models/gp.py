@@ -3,7 +3,10 @@
 
 Same constructor, priors (LogNormal(0, 1) noise, ARD lengthscales under an
 'ard' plate, LogNormal output scale, 'period' for the periodic kernel) and
-``fit``/``predict`` lifecycle as the JAX package. The likelihood is the
+``fit``/``predict`` lifecycle as the JAX package. Every entry point runs on
+the CUDA card unless the caller passes ``device="cpu"`` (or another device):
+``device=None`` means the card, inputs of any kind are moved there, and
+without a card it raises. The likelihood is the
 composed path: kernel (K1 for RBF/Matérn) → ``MultivariateNormal`` →
 ``ops.linalg.mvn_log_prob_centered`` (Cholesky, K2's blocked inverse,
 closed-form backward). ``predict`` builds the grams and factors of a chunk
@@ -27,7 +30,7 @@ from ..config import get_config
 from ..infer import MCMC, NUTS
 from ..kernels import get_kernel
 from ..ops.linalg import gp_predictive_mean_var, gp_predictive_moments, robust_mvn_sample
-from ..utils.utils import device_memory_budget, spawn, split_in_batches
+from ..utils.utils import device_memory_budget, resolve_device, spawn, split_in_batches
 
 kernel_fn_type = Callable[..., torch.Tensor]
 
@@ -54,6 +57,7 @@ class ExactGP:
 
     _exact_moments_ok = True
     _default_dense_mass = False
+    _data_attrs = ("X_train", "y_train")  # moved together between devices
 
     def __init__(
         self,
@@ -154,8 +158,8 @@ class ExactGP:
         warmup_depth_cap: Optional[tuple] = None,
         **kwargs,
     ) -> None:
-        """Run NUTS over the GP hyperparameters on the data's device (or
-        ``device``). ``**kwargs`` threads ``jitter`` to the kernel.
+        """Run NUTS over the GP hyperparameters on ``device`` (None: the CUDA
+        card). ``**kwargs`` threads ``jitter`` to the kernel.
 
         ``pad_to_multiple`` pads the training set to the next multiple with
         rows far outside the data and a large masked noise, so an
@@ -258,13 +262,12 @@ class ExactGP:
                 samples: Optional[Dict[str, torch.Tensor]] = None, n: int = 1,
                 filter_nans: bool = False, noiseless: bool = False, device=None,
                 **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fully Bayesian prediction over all posterior draws, in chunks of
-        draws whose size comes from the device's free memory.
+        """Fully Bayesian prediction over all posterior draws on ``device``
+        (None: the CUDA card), in chunks of draws whose size comes from the
+        device's free memory.
 
         Returns (posterior mean averaged over draws, draws (S, n, m))."""
-        if device is not None:
-            self._set_training_data(device=device)
-        dev = self.X_train.device
+        dev = self._to_device(device)
         X_new = self._set_data(X_new, device=dev)
         samples = self._samples_on(samples, dev)
         num_samples = len(next(iter(samples.values())))
@@ -292,11 +295,13 @@ class ExactGP:
         each chunk's results parked on the host."""
         if isinstance(rng_key, int):
             rng_key = torch.Generator().manual_seed(rng_key)
+        dev = self._to_device(device)
         if predict_fn is None:
             def predict_fn(xi):
                 return self.predict(rng_key, xi, samples, n, filter_nans, noiseless,
-                                    device, **kwargs)
-        outs = [predict_fn(xi) for xi in split_in_batches(self._set_data(X_new), batch_size)]
+                                    dev, **kwargs)
+        outs = [predict_fn(xi) for xi in
+                split_in_batches(self._set_data(X_new, device=dev), batch_size)]
         return (torch.cat([o[0].cpu() for o in outs], 0),
                 torch.cat([o[1].cpu() for o in outs], -1))
 
@@ -323,11 +328,12 @@ class ExactGP:
 
     @torch.no_grad()
     def predict_moments(self, rng_key, X_new, samples: Optional[Dict[str, torch.Tensor]] = None,
-                        noiseless: bool = False, **kwargs
+                        noiseless: bool = False, device=None, **kwargs
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Exact moments of the fully Bayesian predictive mixture:
+        """Exact moments of the fully Bayesian predictive mixture on
+        ``device`` (None: the CUDA card):
         mean = E_s[mean_s], var = E_s[var_s] + Var_s[mean_s]."""
-        dev = self.X_train.device
+        dev = self._to_device(device)
         X_new = self._set_data(X_new, device=dev)
         samples = self._samples_on(samples, dev)
         num_samples = len(next(iter(samples.values())))
@@ -342,30 +348,44 @@ class ExactGP:
         return means.mean(0), variances.mean(0) + means.var(0, correction=0)
 
     def sample_from_prior(self, rng_key: Union[torch.Generator, int], X,
-                          num_samples: int = 10) -> torch.Tensor:
-        """Prior predictive draws of y at X."""
-        X = self._set_data(X)
+                          num_samples: int = 10, device=None) -> torch.Tensor:
+        """Prior predictive draws of y at X, on ``device`` (None: the card)."""
+        X = self._set_data(X, device=device)
         return ppl.Predictive(self.model, num_samples=num_samples)(
             spawn(rng_key, X.device), X)["y"]
 
     # ------------------------------------------------------------- utilities
 
     def _set_data(self, X, y=None, device=None):
-        """Tensors of ``self.dtype`` on ``device`` (default: where they are;
-        numpy arrays land on the CPU); X as (n, d), y as (n,)."""
-        X = torch.as_tensor(X, dtype=self.dtype, device=device)
+        """Tensors of ``self.dtype`` on ``device`` (None: the CUDA card; see
+        ``utils.resolve_device``), whatever the inputs' kind or device; X as
+        (n, d), y as (n,)."""
+        X = torch.as_tensor(X, dtype=self.dtype, device=resolve_device(device))
         X = X if X.ndim > 1 else X[:, None]
         if y is not None:
             return X, torch.as_tensor(y, dtype=self.dtype, device=X.device).squeeze()
         return X
 
     def _set_training_data(self, X_train_new=None, y_train_new=None, device=None) -> None:
-        """Replace the training data (numpy arrays or tensors) and/or move it
-        to ``device``."""
-        X = self.X_train if X_train_new is None else X_train_new
-        y = self.y_train if y_train_new is None else y_train_new
-        self.X_train = torch.as_tensor(X, dtype=self.dtype, device=device)
-        self.y_train = torch.as_tensor(y, dtype=self.dtype, device=self.X_train.device)
+        """Replace the training data (numpy arrays or tensors) and move it,
+        with the rest of ``_data_attrs``, to ``device`` (None: the card)."""
+        if X_train_new is not None:
+            self.X_train = X_train_new
+        if y_train_new is not None:
+            self.y_train = y_train_new
+        dev = resolve_device(device)
+        for name in self._data_attrs:
+            if getattr(self, name, None) is not None:
+                setattr(self, name, torch.as_tensor(getattr(self, name), dtype=self.dtype,
+                                                    device=dev))
+
+    def _to_device(self, device) -> torch.device:
+        """Resolve an entry point's ``device`` (None: the card) and move the
+        training data there if it lies elsewhere."""
+        dev = resolve_device(device)
+        if self.X_train is not None and self.X_train.device != dev:
+            self._set_training_data(device=dev)
+        return dev
 
     def _print_summary(self) -> None:
         self.mcmc.print_summary()

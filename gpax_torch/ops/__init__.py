@@ -1,4 +1,4 @@
-from .chol import blocked_trtri
+from .chol import blocked_trtri, chol_inv
 from .linalg import (
     chol_tri_factors,
     gp_predictive_mean_var,
@@ -6,11 +6,14 @@ from .linalg import (
     mvn_log_prob_centered,
     mvn_sample_from_cov,
     robust_mvn_sample,
+    safe_chol_inv,
     safe_cholesky,
 )
 
 __all__ = [
     "blocked_trtri",
+    "chol_inv",
+    "safe_chol_inv",
     "chol_tri_factors",
     "mvn_log_prob_centered",
     "safe_cholesky",

@@ -1,12 +1,14 @@
 """Build the port's hand-written CUDA kernels and bind them with ctypes.
 
 The JAX package has no counterpart: its Pallas kernels compile inside XLA.
-Here the sources in ``gpax_torch/csrc`` are compiled by ``nvcc`` into one
-shared library with a plain C interface, at first use, into
+Here the sources in ``gpax_torch/csrc`` are compiled by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, at first use, into
 ``build/gpax_torch_kernels/`` beside the package. That takes seconds, where
 ``torch.utils.cpp_extension.load`` (which compiles PyTorch's headers) takes
-minutes. The library's name carries a hash of the sources and flags, so an
-edited source is never served by a stale library.
+minutes. The library's name carries a hash of the sources, the headers they
+include and the flags, so an edited source is never served by a stale
+library.
 
 Nothing here runs at import: the CPU has no ``nvcc``, and the wrappers only
 call :func:`library` for a CUDA tensor. There is no fallback: a failed build
@@ -26,10 +28,11 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gpax_torch_kernels"
-SOURCES = ("gram.cu", "trtri.cu")
+SOURCES = ("gram.cu", "trtri.cu", "cholinv.cu")
+HEADERS = ("tile_inv.cuh",)  # K2's substitution loop, shared with K3
 # no --use_fast_math: K1's expf/sqrtf must be the accurate ones
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -53,6 +56,22 @@ def _declare(lib) -> None:
     for entry in (lib.gpax_tile_tri_inv_f32, lib.gpax_tile_tri_inv_f64):
         entry.argtypes = [p, p, i, i, p]
         entry.restype = i
+    for entry in (lib.gpax_tile_chol_inv_f32, lib.gpax_tile_chol_inv_f64):
+        entry.argtypes = [p, p, p, i, p]
+        entry.restype = i
+
+
+def _run(procs) -> str:
+    """Wait for nvcc processes; raise with their output if any failed."""
+    log = ""
+    failed = False
+    for proc in procs:
+        out, _ = proc.communicate()
+        log += out
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log}")
+    return log
 
 
 def library():
@@ -64,18 +83,24 @@ def library():
         t0 = time.perf_counter()
         srcs = [CSRC / s for s in SOURCES]
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in srcs + [CSRC / s for s in HEADERS]:
             h.update(s.read_bytes())
-        out = BUILD_DIR / f"libgpax_torch_kernels_{h.hexdigest()[:16]}.so"
+        tag = h.hexdigest()[:16]
+        out = BUILD_DIR / f"libgpax_torch_kernels_{tag}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)],
-                capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            nvcc, pid = _nvcc(), os.getpid()
+            objs = [BUILD_DIR / f"{s.stem}_{tag}.{pid}.o" for s in srcs]
+            build_log = _run([
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(srcs, objs)])
+            tmp = out.with_name(f"{out.name}.{pid}.tmp")
+            build_log += _run([subprocess.Popen(
+                [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)])
+            for o in objs:
+                o.unlink()
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         _declare(lib)

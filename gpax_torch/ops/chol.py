@@ -1,8 +1,9 @@
-"""Blocked triangular inverse: kernel K2 (the 128-tile inverse) and its twin.
+"""The 128-tile kernels K2 (triangular inverse) and K3 (Cholesky and
+inverse), their plain twins, and the blocked schemes built on them.
 
-Counterpart of the ``blocked_trtri`` part of ``gpax_tpu/ops/chol.py``
-(``_tile_tri_inv_kernel``, ``_trtri_rec``, ``blocked_trtri``). ``chol_inv``
-and its tile kernel (K3) wait for the SVI slice.
+Counterpart of ``gpax_tpu/ops/chol.py``: ``blocked_trtri`` on K2
+(``_tile_tri_inv_kernel``, ``_trtri_rec``) and ``chol_inv`` on K3
+(``_tile_chol_inv_kernel``, ``_chol_inv_rec``, ``_pad_spd``, the custom VJP).
 
 W = L⁻¹ is built as on the TPU: identity padding to a multiple of TILE, the
 inverses of the diagonal tiles, then the recursion W21 = −W22·(L21·W11) in
@@ -11,6 +12,11 @@ float64 of the factor path in ``ops/linalg.py``. Unlike the TPU, all diagonal
 tiles of all matrices in the batch are inverted by ONE K2 launch
 (``gpax_torch/csrc/trtri.cu``) before the recursion starts, since each leaf
 depends only on L's own diagonal tile.
+
+``chol_inv`` cannot do the same: each leaf of its recursion factors the
+Schur complement left by the leaves before it, so an m-matrix takes
+⌈m/128⌉ K3 launches (``gpax_torch/csrc/cholinv.cu``) in order, each covering
+the current leaf of every matrix in the batch.
 """
 
 from __future__ import annotations
@@ -22,9 +28,12 @@ from . import build
 TILE = 128
 
 launches = 0  # K2 launches in this process (the twin never counts)
+chol_inv_launches = 0  # K3 launches in this process (the twin never counts)
 
-# K2's C entry for each dtype it takes
+# the C entries of K2 and K3 for each dtype they take
 _ENTRIES = {torch.float32: "gpax_tile_tri_inv_f32", torch.float64: "gpax_tile_tri_inv_f64"}
+_CHOL_ENTRIES = {torch.float32: "gpax_tile_chol_inv_f32",
+                 torch.float64: "gpax_tile_chol_inv_f64"}
 
 
 def tile_tri_inv_twin(L: torch.Tensor) -> torch.Tensor:
@@ -96,3 +105,111 @@ def blocked_trtri(L: torch.Tensor) -> torch.Tensor:
     W = tile_tri_inv(Lp)
     _trtri_rec(Lp, W, 0, n_pad)
     return W[:, :n, :n].reshape(batch + (n, n))
+
+
+def tile_chol_inv_twin(A: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``cholesky_ex`` and
+    ``solve_triangular(L, I)`` per tile. A factorization that fails gives a
+    NaN L and W, as the kernel's square root does (``cholesky_ex`` itself would
+    hand back a finite partial factor)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    L = torch.where((info == 0)[..., None, None], L, torch.nan)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand_as(L)
+    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def tile_chol_inv(A: torch.Tensor):
+    """(L, W = L⁻¹) of SPD tiles A (B, TILE, TILE), float32 or float64. K3 on a
+    CUDA tensor, the twin on a CPU tensor. NaN on indefinite input."""
+    if A.device.type == "cpu":
+        return tile_chol_inv_twin(A)
+    global chol_inv_launches
+    if A.device.type != "cuda" or A.dtype not in _CHOL_ENTRIES or not A.is_contiguous() \
+            or A.ndim != 3 or A.shape[1:] != (TILE, TILE):
+        raise ValueError(f"tile_chol_inv: A must be a contiguous (B, {TILE}, {TILE}) "
+                         "float32 or float64 CUDA tensor")
+    L = torch.empty_like(A)
+    W = torch.empty_like(A)
+    if A.numel() == 0:
+        return L, W
+    lib = build.library()
+    err = getattr(lib, _CHOL_ENTRIES[A.dtype])(
+        A.data_ptr(), L.data_ptr(), W.data_ptr(), A.shape[0],
+        torch.cuda.current_stream(A.device).cuda_stream)
+    build.check(err, "tile_chol_inv")
+    chol_inv_launches += 1
+    return L, W
+
+
+def _chol_inv_rec(K: torch.Tensor, L: torch.Tensor, W: torch.Tensor) -> None:
+    """Write (L, W = L⁻¹) of K (B, n, n), n a multiple of TILE, into the
+    views L and W (``chol.py:141-153``): L11, W11 of K11 first, then
+    L21 = K21·W11ᵀ, the Schur complement K22 − L21·L21ᵀ, its L22, W22, and
+    W21 = −W22·L21·W11."""
+    n = K.shape[-1]
+    if n <= TILE:
+        Lt, Wt = tile_chol_inv(K.contiguous())
+        L.copy_(Lt)
+        W.copy_(Wt)
+        return
+    h = TILE * ((n // TILE) // 2)
+    _chol_inv_rec(K[:, :h, :h], L[:, :h, :h], W[:, :h, :h])
+    L21 = K[:, h:, :h] @ W[:, :h, :h].mT
+    L[:, h:, :h] = L21
+    _chol_inv_rec(K[:, h:, h:] - L21 @ L21.mT, L[:, h:, h:], W[:, h:, h:])
+    W[:, h:, :h] = -(W[:, h:, h:] @ (L21 @ W[:, :h, :h]))
+
+
+def _pad_spd(K: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """K (B, n, n) padded to (B, n_pad, n_pad) as block_diag(K, I): the
+    factor and inverse of the padding are identity blocks that slice away
+    exactly (``chol.py:156-164``)."""
+    B, n, _ = K.shape
+    if n_pad == n:
+        return K
+    Kp = K.new_zeros((B, n_pad, n_pad))
+    Kp[:, :n, :n] = K
+    Kp[:, n:, n:].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    return Kp
+
+
+def _phi(M: torch.Tensor) -> torch.Tensor:
+    """tril(M) with its diagonal halved: the Cholesky pullback's projection."""
+    out = torch.tril(M)
+    out.diagonal(dim1=-2, dim2=-1).mul_(0.5)
+    return out
+
+
+class _CholInv(torch.autograd.Function):
+    """``chol_inv``'s forward on K3 and the matmul-only pullback of
+    ``chol.py:197-211``: L̄ ← tril(L̄) − tril(Wᵀ·tril(W̄)·Wᵀ),
+    P = Φ(Lᵀ·L̄), K̄ = sym(Wᵀ·P·W)."""
+
+    @staticmethod
+    def forward(ctx, K):
+        batch, n = K.shape[:-2], K.shape[-1]
+        n_pad = -(-n // TILE) * TILE
+        Kb = _pad_spd(K.reshape(-1, n, n), n_pad)
+        L = Kb.new_zeros(Kb.shape)
+        W = Kb.new_zeros(Kb.shape)
+        _chol_inv_rec(Kb, L, W)
+        L = L[:, :n, :n].reshape(batch + (n, n))
+        W = W[:, :n, :n].reshape(batch + (n, n))
+        ctx.save_for_backward(L, W)
+        return L, W
+
+    @staticmethod
+    def backward(ctx, Lb, Wb):
+        L, W = ctx.saved_tensors
+        Wt = W.mT
+        Lbar = torch.tril(Lb) - torch.tril(Wt @ (torch.tril(Wb) @ Wt))
+        Kb = Wt @ (_phi(L.mT @ Lbar) @ W)
+        return 0.5 * (Kb + Kb.mT)
+
+
+def chol_inv(K: torch.Tensor):
+    """(L, W = L⁻¹) of SPD K (…, n, n) by the blocked all-matmul scheme:
+    K3 on each 128-leaf, matmuls elsewhere; differentiable through the
+    closed-form pullback. NaN-propagating on indefinite input, like the
+    library Cholesky in JAX, so ``safe_chol_inv``'s escalation composes."""
+    return _CholInv.apply(K)

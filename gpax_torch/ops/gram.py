@@ -28,6 +28,8 @@ from . import build
 _SQRT5 = math.sqrt(5.0)
 _KINDS = {"rbf": 0, "matern52": 1}
 
+_MAX_BATCH = 65535  # CUDA's limit on gridDim.z
+
 launches = 0  # K1 launches in this process (the twin never counts)
 
 
@@ -79,12 +81,17 @@ def gram_unscaled(Xs: torch.Tensor, Zs: torch.Tensor, noise_eff: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = build.library()
-    err = lib.gpax_gram_f32(
-        Xs.data_ptr(), Zs.data_ptr(), noise_eff.data_ptr(), out.data_ptr(),
-        B, n, m, d, _KINDS[kind], int(add_noise),
-        torch.cuda.current_stream(Xs.device).cuda_stream)
-    build.check(err, "gram")
-    launches += 1
+    stream = torch.cuda.current_stream(Xs.device).cuda_stream
+    # the batch is the grid's z dimension, at most _MAX_BATCH blocks: one
+    # launch per slice of that many matrices (the sparse GP's k(x, x)
+    # diagonal is a batch of n 1×1 grams)
+    for b0 in range(0, B, _MAX_BATCH):
+        b1 = min(B, b0 + _MAX_BATCH)
+        err = lib.gpax_gram_f32(
+            Xs[b0:b1].data_ptr(), Zs[b0:b1].data_ptr(), noise_eff[b0:b1].data_ptr(),
+            out[b0:b1].data_ptr(), b1 - b0, n, m, d, _KINDS[kind], int(add_noise), stream)
+        build.check(err, "gram")
+        launches += 1
     return out
 
 

@@ -18,6 +18,10 @@ a float64 factor path leaves errors of at most 0.6, which come from the
 float32 gram. On that card float64 GEMMs run on the tensor cores, no slower
 than float32 ones without TF32.
 
+``safe_chol_inv`` takes ``chol_inv`` instead, kernel K3 on each 128-leaf, in
+K's dtype; ``safe_chol_inv_f64`` (the sparse GP's factor, see
+``models/sparse_gp.py``) runs it in float64 with the jitters of K's dtype.
+
 ``torch.linalg.cholesky`` raises on a non-PD input where JAX returns NaN, so
 failure is read from ``cholesky_ex``'s ``info`` and never from the factor's
 values: on failure ``cholesky_ex`` may hand back a partial factor that is
@@ -32,7 +36,7 @@ from typing import Tuple
 import torch
 
 from ..utils.utils import host_bool
-from .chol import blocked_trtri
+from .chol import blocked_trtri, chol_inv
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -153,6 +157,44 @@ def safe_cholesky(K: torch.Tensor, base_jitter: float = 0.0) -> torch.Tensor:
     eye = torch.eye(n, dtype=K.dtype, device=K.device)
     L, info = torch.linalg.cholesky_ex(K + j[..., None, None] * eye)
     return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+def _chol_with_inv(K: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, W=L⁻¹) of K (``linalg.py:40-47``). The port always takes
+    ``chol_inv`` (K3 on a CUDA tensor): kernels are chosen by device, never
+    by the JAX package's size threshold."""
+    return chol_inv(K)
+
+
+def safe_chol_inv(K: torch.Tensor, base_jitter: float = 0.0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, W=L⁻¹) with ``safe_cholesky``'s jitter escalation
+    (``linalg.py:280-294``): a no-grad library probe picks, per matrix,
+    j_base or j_big, then ``chol_inv(K + j·I)`` runs once and is
+    differentiated. No host sync. A factor that fails even so is NaN."""
+    return _safe_chol_inv(K, K, base_jitter)
+
+
+def safe_chol_inv_f64(K: torch.Tensor, base_jitter: float = 0.0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``safe_chol_inv`` with the probe and ``chol_inv`` in float64 (K3's
+    float64 instantiation) but the jitters of K's dtype; L and W come back
+    in K's dtype."""
+    L, W = _safe_chol_inv(K, K.to(torch.float64), base_jitter)
+    return L.to(K.dtype), W.to(K.dtype)
+
+
+def _safe_chol_inv(K: torch.Tensor, Kf: torch.Tensor, base_jitter: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The escalation of ``safe_chol_inv`` on Kf (K itself or K in a wider
+    dtype), with the jitters of K's dtype."""
+    n = K.shape[-1]
+    j_base = max(4.0 * n * _eps(K.dtype), base_jitter)
+    j_big = _escalated_jitter(K, _eps(K.dtype))
+    with torch.no_grad():
+        _, info = torch.linalg.cholesky_ex(_add_diag(Kf.detach(), j_base))
+    j = torch.where(info == 0, torch.full_like(j_big, j_base), j_big)
+    return _chol_with_inv(_add_diag(Kf, j.to(Kf.dtype)))
 
 
 def robust_mvn_sample(rng_key: torch.Generator, mean: torch.Tensor,

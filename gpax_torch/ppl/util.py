@@ -1,12 +1,13 @@
 """Model introspection for inference (counterpart of ``gpax_tpu/ppl/util.py``):
 ``initialize_model`` (its eager path, ``util.py:224-244``),
-``make_potential_fn``, ``init_to_median`` and ``Predictive``. The JAX
+``make_potential_fn``, ``init_to_median``, ``get_latent_structure`` (for
+the SVI guides) and ``Predictive``. The JAX
 package's deferred-init machinery exists for the XLA compile and has no
 counterpart in eager PyTorch."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +30,16 @@ def get_latent_sites(model, rng_key, model_args=(), model_kwargs=None) -> Dict[s
     tr = trace(seed(model, rng_key)).get_trace(*model_args, **model_kwargs)
     return {name: site for name, site in tr.items()
             if site["type"] == "sample" and not site["is_observed"]}
+
+
+def get_latent_structure(model, rng_key, model_args=(), model_kwargs=None
+                         ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object]]:
+    """(prior-draw values, supports) of every latent site from one seeded
+    trace (``util.py:48-80``, whose compiled trace has no counterpart in
+    eager PyTorch)."""
+    sites = get_latent_sites(model, rng_key, model_args, model_kwargs)
+    return ({n: s["value"] for n, s in sites.items()},
+            {n: s["fn"].support for n, s in sites.items()})
 
 
 def constrain(transforms: Dict, unconstrained: Dict) -> Dict:

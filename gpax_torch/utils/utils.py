@@ -1,15 +1,18 @@
 """General utilities (counterpart of ``gpax_tpu/utils/utils.py``): RNG
-generators, batching, the device memory budget, and the count of host reads
-of device values."""
+generators, the entry points' device, batching, the device memory budget,
+the count of host reads of device values, inducing points and sparse
+images."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Union
 
+import numpy as np
 import torch
 
-__all__ = ["get_keys", "spawn", "split_in_batches", "device_memory_budget",
-           "host_bool", "host_syncs", "reset_host_syncs"]
+__all__ = ["get_keys", "spawn", "resolve_device", "split_in_batches",
+           "device_memory_budget", "host_bool", "host_syncs", "reset_host_syncs",
+           "initialize_inducing_points", "preprocess_sparse_image"]
 
 _MAX_SEED = 2**62
 
@@ -36,6 +39,22 @@ def spawn(key: Union[torch.Generator, int],
                          "(reading a device generator's draw would sync)")
     s = int(torch.randint(_MAX_SEED, (), generator=key))
     return torch.Generator(device=device or "cpu").manual_seed(s)
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of a model entry point: ``None`` means the CUDA card (its
+    current index), anything else is taken as given. Without a CUDA device,
+    ``None`` raises: the CPU is used only when the caller asks for it."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "gpax_torch runs on the CUDA card by default and none is available; "
+                'pass device="cpu" to run on the CPU')
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def split_in_batches(X_new: torch.Tensor, batch_size: int = 100, dim: int = 0) -> List:
@@ -73,3 +92,56 @@ def host_syncs() -> int:
 
 def reset_host_syncs() -> None:
     _host_reads[0] = 0
+
+
+def initialize_inducing_points(X: torch.Tensor, ratio: float = 0.1, method: str = "uniform",
+                               key: Optional[Union[torch.Generator, int]] = None
+                               ) -> torch.Tensor:
+    """Inducing points for sparse GPs (``utils.py:112-134``): ``"uniform"``
+    index spacing, a ``"random"`` subsample without replacement drawn with
+    ``key`` (a generator or an integer seed), or ``"kmeans"`` centres
+    (scikit-learn, imported only then). m = int(n·ratio) points, on X's
+    device.
+
+    ``"uniform"`` takes the indices floor((n−1)·i/(m−1)) in float32 with the
+    last one n−1, the formula of ``jnp.linspace(0, n−1, m, dtype=int32)``.
+    (XLA on the CPU may round the division differently and then pick a
+    neighbouring index at rare sizes.)"""
+    if not 0 < ratio < 1:
+        raise ValueError("The 'ratio' value must be between 0 and 1")
+    n = X.shape[0]
+    m = int(n * ratio)
+    if method == "uniform":
+        if m < 2:
+            return X[:m]
+        step = torch.arange(m - 1, dtype=torch.float32) / (m - 1)
+        idx = torch.cat([torch.floor((n - 1) * step).long(), torch.tensor([n - 1])])
+        return X[idx.to(X.device)]
+    if method == "random":
+        if key is None:
+            raise ValueError("A random generator (key) must be provided for random selection")
+        if isinstance(key, int) or key.device != X.device:
+            key = spawn(key, X.device)
+        return X[torch.randperm(n, generator=key, device=X.device)[:m]]
+    if method == "kmeans":
+        try:
+            from sklearn.cluster import KMeans
+        except ImportError as e:
+            raise ImportError("scikit-learn is required for method='kmeans'") from e
+        centers = KMeans(n_clusters=m, random_state=0, n_init="auto").fit(X.cpu().numpy())
+        return torch.as_tensor(centers.cluster_centers_, dtype=X.dtype, device=X.device)
+    raise ValueError("Method must be 'uniform', 'random', or 'kmeans'")
+
+
+def preprocess_sparse_image(sparse_image: np.ndarray):
+    """A sparse image (zeros = missing pixels) as GP training data
+    (``utils.py:98-109``): (coords (N, D), values (N,), full grid
+    (N_full, D)), numpy arrays of the image's dtype."""
+    dtype = sparse_image.dtype
+    nz = np.nonzero(sparse_image)
+    gp_input = np.column_stack(nz)
+    targets = sparse_image[nz]
+    full_indices = np.array(
+        np.meshgrid(*[np.arange(dim) for dim in sparse_image.shape])
+    ).T.reshape(-1, sparse_image.ndim)
+    return gp_input.astype(dtype), targets.astype(dtype), full_indices.astype(dtype)

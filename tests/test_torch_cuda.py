@@ -1,4 +1,4 @@
-"""CUDA kernels K1 and K2 against their plain twins, on the card.
+"""CUDA kernels K1, K2 and K3 against their plain twins, on the card.
 
 These tests need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
 elsewhere. The file imports no JAX, so it runs on a machine without it:
@@ -12,6 +12,7 @@ import torch
 
 import gpax_torch
 from gpax_torch.ops import chol, gram, linalg
+from gpax_torch.utils import initialize_inducing_points
 
 pytestmark = pytest.mark.cuda
 
@@ -127,3 +128,133 @@ def test_exactgp_fit_and_predict_on_card(dev):
     assert mean.shape == (100,) and draws.shape == (50, 1, 100)
     assert torch.isfinite(draws).all()
     assert ((mean - torch.sin(2 * Xn[:, 0])) ** 2).mean().sqrt().item() < 0.05
+
+
+def _spd_batch(B, n, dev, dtype, seed=0):
+    """Well-conditioned SPD matrices A·Aᵀ/n + ½I (κ ≤ ~9)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, n, n), generator=g, device=dev, dtype=dtype)
+    K = A @ A.mT / n
+    K.diagonal(dim1=-2, dim2=-1).add_(0.5)
+    return K
+
+
+# K3 vs library, relative to max|L| or max|W|: float32 factors of κ(K) ≤ 9
+# agree to ~1e-6, float64 ones to ~1e-15
+K3_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 8])
+def test_k3_tiles_match_twin(dev, dtype, B):
+    A = _spd_batch(B, 128, dev, dtype, seed=B)
+    before = chol.chol_inv_launches
+    L, W = chol.tile_chol_inv(A)
+    assert chol.chol_inv_launches == before + 1
+    L_t, W_t = chol.tile_chol_inv_twin(A)
+    assert (L - L_t).abs().max().item() <= K3_TOL[dtype] * L_t.abs().max().item()
+    assert (W - W_t).abs().max().item() <= K3_TOL[dtype] * W_t.abs().max().item()
+    assert torch.count_nonzero(torch.triu(L, 1)) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m,B", [(128, 1), (1024, 1), (1024, 8), (1000, 2)])
+def test_chol_inv_on_card_matches_library(dev, dtype, m, B):
+    """One K3 launch per 128-leaf whatever the batch; L and W against
+    cholesky_ex and solve_triangular(L, I) on the card."""
+    K = _spd_batch(B, m, dev, dtype, seed=m)
+    before = chol.chol_inv_launches
+    L, W = chol.chol_inv(K)
+    assert chol.chol_inv_launches == before + -(-m // 128)
+    L_ref = torch.linalg.cholesky(K)
+    eye = torch.eye(m, device=dev, dtype=dtype)
+    W_ref = torch.linalg.solve_triangular(L_ref, eye.expand_as(K), upper=False)
+    tol = K3_TOL[dtype] * (10 if dtype == torch.float32 else 1)  # the recursion's GEMMs
+    assert (L - L_ref).abs().max().item() <= tol * L_ref.abs().max().item()
+    assert (W - W_ref).abs().max().item() <= tol * W_ref.abs().max().item()
+    assert (W @ L - eye).abs().max().item() <= (1e-3 if dtype == torch.float32 else 1e-10)
+
+
+def test_k3_propagates_nan_on_indefinite_input(dev):
+    A = _spd_batch(2, 128, dev, torch.float32)
+    A[1, 60, 60] = -1.0
+    L, W = chol.tile_chol_inv(A)
+    assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
+    assert torch.isfinite(L[1, :60, :60]).all()
+    assert torch.isnan(L[1, 60:, 60]).all() and not torch.isfinite(W[1, 60:]).any()
+
+
+def test_chol_inv_backward_on_card_matches_cpu(dev):
+    K = _spd_batch(1, 300, "cpu", torch.float32)[0]
+    rng = np.random.default_rng(0)
+    y = torch.tensor(rng.normal(size=300), dtype=torch.float32)
+    grads = []
+    for device in ("cpu", dev):
+        Kd = K.detach().clone().to(device).requires_grad_(True)
+        L, W = chol.chol_inv(Kd)
+        (((W @ y.to(device)) ** 2).sum() + torch.log(L.diagonal()).sum()).backward()
+        grads.append(Kd.grad.cpu())
+    # float32 twin vs K3 with the same matmuls: 1e-3 of max|∂K|
+    assert (grads[1] - grads[0]).abs().max() <= 1e-3 * grads[0].abs().max()
+
+
+def test_visparsegp_fits_numpy_input_on_the_card_by_default(dev):
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 4, 400).astype(np.float32)
+    y = (np.sin(3 * X) * np.exp(-0.3 * X) + 0.05 * rng.normal(size=400)).astype(np.float32)
+    m = gpax_torch.viSparseGP(1, "RBF")
+    k3, k1 = chol.chol_inv_launches, gram.launches
+    m.fit(0, X, y, inducing_points_ratio=0.05, inducing_points_selection="uniform",
+          num_steps=300, step_size=0.05, print_summary=False)
+    assert m.X_train.device.type == "cuda" and m.Xu.device.type == "cuda"
+    assert chol.chol_inv_launches > k3 and gram.launches > k1
+    grid = np.linspace(0, 4, 201, dtype=np.float32)
+    mean, var = m.predict_in_batches(1, grid, batch_size=64)
+    truth = np.sin(3 * grid) * np.exp(-0.3 * grid)
+    assert torch.isfinite(mean).all() and torch.isfinite(var).all()
+    assert np.sqrt(np.mean((mean.numpy() - truth) ** 2)) < 0.03
+
+
+def _rbf_gram(x, ls, ks, jitter):
+    K = ks * torch.exp(-0.5 * ((x[:, None] - x[None, :]) / ls) ** 2)
+    K.diagonal().add_(jitter)
+    return K
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("spacing,ls,ks,m", [(0.004, 1.15, 2.0, 1000), (0.04, 0.8, 0.9, 100)])
+def test_k3_on_an_ill_conditioned_rbf_tile_matches_float64(dev, dtype, spacing, ls, ks, m):
+    """The sparse GP's first leaf: an RBF gram of 128 inducing points 4/m
+    apart with the float32 jitter 4·m·eps, κ(K) 5e5-9e5. K3 in either dtype
+    is within 2·128·eps·κ(L) (twice the first-order bound of a
+    factorization and a triangular inversion) of the float64 factor and
+    inverse, relative to their max."""
+    x = spacing * torch.arange(128, dtype=torch.float64, device=dev)
+    K64 = _rbf_gram(x, ls, ks, 4 * m * torch.finfo(torch.float32).eps)
+    L64 = torch.linalg.cholesky(K64)
+    W64 = torch.linalg.solve_triangular(L64, torch.eye(128, dtype=torch.float64, device=dev),
+                                        upper=False)
+    kappa = (torch.linalg.matrix_norm(L64, 2) * torch.linalg.matrix_norm(W64, 2)).item()
+    tol = 2 * 128 * torch.finfo(dtype).eps * kappa
+    L, W = chol.tile_chol_inv(K64.to(dtype)[None].contiguous())
+    assert (L[0].double() - L64).abs().max().item() <= tol * L64.abs().max().item()
+    assert (W[0].double() - W64).abs().max().item() <= tol * W64.abs().max().item()
+
+
+def test_sparse_factor_holds_a_near_singular_m1000_gram(dev):
+    """An RBF gram of bench.py's m = 1000 inducing points (ℓ = 1.5,
+    k_scale 2, κ ~ 1e6-1e7 with the float32 jitter 4·m·eps), as near
+    singular as the m = 1000 fit's Kuu: the sparse GP's float64 factor
+    equals a float64 Cholesky of the same jittered K and its inverse to
+    float32 rounding, 1e-6 of max."""
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.uniform(0, 4, 20000), dtype=torch.float32, device=dev)[:, None]
+    Xu = torch.sort(initialize_inducing_points(X, 0.05, "uniform"), 0).values
+    K = gpax_torch.kernels.RBFKernel(Xu, Xu, {"k_length": torch.tensor([1.5], device=dev),
+                                             "k_scale": torch.tensor(2.0, device=dev)})
+    L, W = linalg.safe_chol_inv_f64(K)
+    eye = torch.eye(1000, dtype=torch.float64, device=dev)
+    L64 = torch.linalg.cholesky(K.double() + 4 * 1000 * torch.finfo(torch.float32).eps * eye)
+    W64 = torch.linalg.solve_triangular(L64, eye, upper=False)
+    assert (L.double() - L64).abs().max().item() <= 1e-6 * L64.abs().max().item()
+    assert (W.double() - W64).abs().max().item() <= 1e-6 * W64.abs().max().item()

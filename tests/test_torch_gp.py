@@ -56,7 +56,7 @@ def test_potential_and_gradient_match_jax(kernel, jax_fp32_wtw):
     X, y = _data(24, seed=4)
     jm, tm = gpax_tpu.ExactGP(1, kernel), gpax_torch.ExactGP(1, kernel)
     Xj, yj = jm._set_data(X, y)
-    Xt, yt = tm._set_data(X, y)
+    Xt, yt = tm._set_data(X, y, device="cpu")
     jinfo = gpax_tpu.ppl.initialize_model(jm.model, jax.random.PRNGKey(0), (Xj, yj))
     tinfo = gpax_torch.ppl.initialize_model(tm.model, torch.Generator().manual_seed(0), (Xt, yt))
     for point in ([-0.3, 0.2, -2.0], [0.4, 1.1, -3.5], [-1.0, -0.5, -1.2]):
@@ -76,7 +76,7 @@ def test_fit_posterior_means_match_jax_within_mc_error(jax_fit):
     X, y = _data()
     m = gpax_torch.ExactGP(1, "RBF")
     m.fit(get_keys(0)[0], X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES,
-          print_summary=False, progress_bar=False)
+          print_summary=False, progress_bar=False, device="cpu")
     ts = {k: v.numpy() for k, v in m.get_samples().items()}
     assert ts["k_length"].shape == (NUM_SAMPLES, 1)
     assert ts["k_scale"].shape == ts["noise"].shape == (NUM_SAMPLES,)
@@ -101,7 +101,7 @@ def test_mvn_posterior_matches_jax(kernel, noiseless):
               "noise": np.float32(0.05)}
     jm, tm = gpax_tpu.ExactGP(1, kernel), gpax_torch.ExactGP(1, kernel)
     jm._set_training_data(jnp.asarray(X[:, None]), jnp.asarray(y))
-    tm._set_training_data(X[:, None], y)
+    tm._set_training_data(X[:, None], y, device="cpu")
     jmean, jcov = jm.get_mvn_posterior(jnp.asarray(Xn), params, noiseless)
     tmean, tcov = tm.get_mvn_posterior(torch.tensor(Xn), samples_from_numpy(params), noiseless)
     # cond(K) ~ 1e3: fp32 W-based and triangular-solve paths agree to ~1e-5
@@ -117,7 +117,7 @@ def test_mean_fn_is_applied_like_jax():
     jm = gpax_tpu.ExactGP(1, "RBF", mean_fn=lambda x: 3.0 * x)
     tm = gpax_torch.ExactGP(1, "RBF", mean_fn=lambda x: 3.0 * x)
     jm._set_training_data(jnp.asarray(X[:, None]), jnp.asarray(y))
-    tm._set_training_data(X[:, None], y)
+    tm._set_training_data(X[:, None], y, device="cpu")
     jmean, _ = jm.get_mvn_posterior(jnp.asarray(Xn), params)
     tmean, _ = tm.get_mvn_posterior(torch.tensor(Xn), samples_from_numpy(params))
     assert_close(tmean, jmean, rtol=1e-4, atol=1e-4)
@@ -129,10 +129,11 @@ def test_predict_with_injected_samples_matches_jax():
     Xn = np.linspace(-1, 1, 10, dtype=np.float32)[:, None]
     jm, tm = gpax_tpu.ExactGP(1, "RBF"), gpax_torch.ExactGP(1, "RBF")
     jm._set_training_data(jnp.asarray(X[:, None]), jnp.asarray(y))
-    tm._set_training_data(X[:, None], y)
+    tm._set_training_data(X[:, None], y, device="cpu")
     jmean, jdraws = jm.predict(gpax_tpu.utils.get_keys()[1], jnp.asarray(Xn), s, n=2,
                                noiseless=True)
-    tmean, tdraws = tm.predict(get_keys()[1], Xn, samples_from_numpy(s), n=2, noiseless=True)
+    tmean, tdraws = tm.predict(get_keys()[1], Xn, samples_from_numpy(s), n=2, noiseless=True,
+                               device="cpu")
     assert tmean.shape == (10,) and tdraws.shape == jdraws.shape == (5, 2, 10)
     assert torch.isfinite(tdraws).all()
     assert_close(tmean, jmean, rtol=1e-4, atol=1e-4)
@@ -145,13 +146,14 @@ def test_predict_chunks_and_batches_agree():
     s = samples_from_numpy(_samples(7))
     Xn = torch.linspace(-1, 1, 25)[:, None]
     m = gpax_torch.ExactGP(1, "Matern")
-    m._set_training_data(X[:, None], y)
-    full, _ = m.predict(0, Xn, s)
+    m._set_training_data(X[:, None], y, device="cpu")
+    full, _ = m.predict(0, Xn, s, device="cpu")
     m._chunk_size = lambda *a, **k: 2
-    chunked, draws = m.predict(0, Xn, s, n=3)
+    chunked, draws = m.predict(0, Xn, s, n=3, device="cpu")
     assert draws.shape == (7, 3, 25)
     assert_close(chunked, full, rtol=1e-6, atol=1e-6)
-    batched, bdraws = m.predict_in_batches(0, Xn, batch_size=10, samples=s, n=3)
+    batched, bdraws = m.predict_in_batches(0, Xn, batch_size=10, samples=s, n=3,
+                                           device="cpu")
     assert bdraws.shape == (7, 3, 25)
     assert_close(batched, full, rtol=1e-5, atol=1e-5)
 
@@ -162,9 +164,9 @@ def test_predict_moments_and_mean_var_match_jax():
     Xn = np.linspace(-1, 1, 9, dtype=np.float32)[:, None]
     jm, tm = gpax_tpu.ExactGP(1, "RBF"), gpax_torch.ExactGP(1, "RBF")
     jm._set_training_data(jnp.asarray(X[:, None]), jnp.asarray(y))
-    tm._set_training_data(X[:, None], y)
+    tm._set_training_data(X[:, None], y, device="cpu")
     jmean, jvar = jm.predict_moments(None, jnp.asarray(Xn), s)
-    tmean, tvar = tm.predict_moments(None, Xn, samples_from_numpy(s))
+    tmean, tvar = tm.predict_moments(None, Xn, samples_from_numpy(s), device="cpu")
     assert_close(tmean, jmean, rtol=1e-4, atol=1e-4)
     assert_close(tvar, jvar, rtol=1e-3, atol=1e-4)
     one = {k: v[0] for k, v in s.items()}
@@ -178,10 +180,11 @@ def test_predict_moments_and_mean_var_match_jax():
 def test_fit_input_shapes_padding_and_prior_draws():
     X, y = _data()
     m = gpax_torch.ExactGP(1, "RBF")
-    m.fit(1, X, y, num_warmup=30, num_samples=20, print_summary=False, pad_to_multiple=16)
+    m.fit(1, X, y, num_warmup=30, num_samples=20, print_summary=False, pad_to_multiple=16,
+          device="cpu")
     assert m.X_train.shape == (8, 1) and m.y_train.shape == (8,)
     assert all(torch.isfinite(v).all() for v in m.get_samples().values())
-    draws = m.sample_from_prior(2, X, num_samples=3)
+    draws = m.sample_from_prior(2, X, num_samples=3, device="cpu")
     assert draws.shape == (3, 8) and torch.isfinite(draws).all()
 
 
@@ -190,7 +193,8 @@ def test_unported_pieces_raise():
         gpax_torch.ExactGP(1, "NNGP")
     X, y = _data()
     with pytest.raises(NotImplementedError):
-        gpax_torch.ExactGP(1, "RBF").fit(0, X, y, num_warmup=5, num_samples=5, segment_size=2)
+        gpax_torch.ExactGP(1, "RBF").fit(0, X, y, num_warmup=5, num_samples=5, segment_size=2,
+                                         device="cpu")
 
 
 def test_samples_from_numpy():
