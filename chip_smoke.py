@@ -23,31 +23,48 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    and a batch of 8 at m = 1024, on two ill-conditioned RBF tiles (κ ~ 1e6,
    the sparse GP's first leaf) in both dtypes, with an indefinite tile that
    must come back NaN, and times K3, the twin and that library pair;
-6. checks the ExactGP potential and gradient on the card against the CPU
-   twins at n = 512;
-7. drives the ExactGP path: ``gpax_torch.ExactGP(1, "RBF")`` fits NUTS
-   (100 warmup + 100 draws, tree depth 7) on n = 4096 points of
-   sin(2x) + 0.1·noise, then ``predict_in_batches`` on 2048 points, counting
-   K1 and K2 launches in each phase;
-8. holds K1 and K2 against their twins at that path's own shapes and
+6. holds kernels K4 (single-launch panel Cholesky) and K5 (single-launch
+   panel triangular inverse) against their twins in float32 and float64 at
+   n = 8192, a ragged n = 4000 (identity padding), a batch of 4 at n = 1024
+   and an indefinite matrix that must come back NaN, and times K4, K5,
+   their twins, the library calls and the pair against the composed factor
+   (``cholesky_ex`` + ``blocked_trtri``) at n = 8192;
+7. checks the ExactGP potential and gradient on the card against the CPU
+   twins at n = 512 on both likelihood routes (fused and composed), and the
+   routes against each other; then times likelihood+grad on both routes at
+   n ∈ {512, …, 8192} in turns and prints the crossover that sets
+   ``fused_likelihood_max_n``, and which route "auto" takes for ExactGP at
+   n = 4096 and viGP at config 2;
+8. drives the ExactGP path on the composed route: ``gpax_torch.ExactGP(1,
+   "RBF")`` fits NUTS (100 warmup + 100 draws, tree depth 7) on n = 4096
+   points of sin(2x) + 0.1·noise, then ``predict_in_batches`` on 2048
+   points, counting K1 and K2 launches in each phase;
+9. holds K1 and K2 against their twins at that path's own shapes and
    inputs: the fit's 4096×4096 gram, and predict's grams (4096×4096,
    1024×4096, 1024×1024) and float64 factors for one chunk of posterior
-   draws, the chunk sized as ``predict`` sizes it;
-9. drives the viSparseGP path at BASELINE config 3 (bench.py's data and
-   settings: n = 2000, inducing ratio 0.05 "uniform" so m = 100, 3000 SVI
-   steps of 5e-3, then ``predict_in_batches`` on 2001 points in batches of
-   1024), numpy inputs and no ``device`` argument, counting K1 and K3
-   launches in the fit and the predict; then again at n = 20000 (m = 1000,
-   eight K3 leaves per ``chol_inv``, 1000 steps); after each, K1 against
-   its twin on every gram of the fitted model (Kuu, Kuf, the batch of n
-   1×1 grams of the Kff diagonal) and of a predict batch (Kuu, Kuf, Kus,
-   Kss), and K3 on every leaf of that batch's Kuu and capacitance B;
-10. drives the viGP path at BASELINE config 2 (bench.py's 128×128 image,
+   draws, the chunk sized as ``predict`` sizes it; drives K4/K5's path,
+   ``panel_chol_factors`` on that fit's gram (its first posterior draw's,
+   with the factor path's base jitter) in float64 and float32, counting their
+   launches, holds them against their twins there and times them, the
+   twins, the library calls and the pair against the composed factor;
+10. drives the same fit on the fused route (``use_fused_likelihood=
+    "always"``), with the main path's limits, its posterior means within 4
+    posterior sd of the composed fit's, and K1/K2 launches counted;
+11. drives the viSparseGP path at BASELINE config 3 (bench.py's data and
+    settings: n = 2000, inducing ratio 0.05 "uniform" so m = 100, 3000 SVI
+    steps of 5e-3, then ``predict_in_batches`` on 2001 points in batches of
+    1024), numpy inputs and no ``device`` argument, counting K1 and K3
+    launches in the fit and the predict; then again at n = 20000 (m = 1000,
+    eight K3 leaves per ``chol_inv``, 1000 steps); after each, K1 against
+    its twin on every gram of the fitted model (Kuu, Kuf, the batch of n
+    1×1 grams of the Kff diagonal) and of a predict batch (Kuu, Kuf, Kus,
+    Kss), and K3 on every leaf of that batch's Kuu and capacitance B;
+12. drives the viGP path at BASELINE config 2 (bench.py's 128×128 image,
     15 % of the pixels, Matérn, 250 steps of 0.05, then the 16384-point
-    grid in batches of 1024), counting K1 and K2 launches, then holds K1
-    and K2 against their twins on the fitted model's own grams and float64
-    factors;
-11. prints a JSON line of the kernels (time, twin time, library time,
+    grid in batches of 1024) on the route "auto" takes, counting K1 and K2
+    launches, then holds K1 and K2 against their twins on the fitted
+    model's own grams and float64 factors;
+13. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
     bound, launches on every path), the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -67,7 +84,7 @@ import numpy as np
 import torch
 
 import gpax_torch
-from gpax_torch.ops import build, chol, gram, linalg
+from gpax_torch.ops import build, chol, gram, linalg, panel_chol
 from gpax_torch.ppl import initialize_model, log_density
 from gpax_torch.utils import get_keys, host_syncs, preprocess_sparse_image, reset_host_syncs
 
@@ -92,6 +109,18 @@ K3_REL_TOL = {torch.float32: 1e-4, torch.float64: 1e-12}
 # on matrices of κ ≤ ~9 (see check_k3)
 CHOL_INV_TOL = {torch.float32: 1e-3, torch.float64: 1e-11}
 CHOL_INV_RESID_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
+
+# K4/K5 vs their twins: L relative to max|L|, Wᵀ (against the twin on K4's
+# own L) relative to max|Wᵀ|, ‖L·W − I‖_max and ‖W·L − I‖_max, each at most
+# this floor or the first-order bounds 2·n·eps·κ² (L's forward error) and
+# 2·n·eps·κ (the inverse), κ = ‖|L|·|W|‖_max; and the lower triangle of
+# ‖L·Lᵀ − K‖_max/‖K‖_max ≤ 2·n·eps, the backward error of any Cholesky
+# whatever κ (see panel_compare)
+PANEL_REL_FLOOR = {torch.float32: 1e-4, torch.float64: 1e-12}
+PANEL_CASES = ((8192, 1), (4000, 1), (1024, 4))  # (n, batch); the first is timed
+# likelihood+grad sizes of the fused/composed crossover
+FUSED_NS = (512, 1024, 2048, 4096, 8192)
+FUSED_SD = 4.0  # the fused fit's posterior means within this many posterior sd
 
 # BASELINE config 3 (bench.py:433-468) and its wider inducing set
 SPARSE_RATIO = 0.05
@@ -161,10 +190,22 @@ def chol_inv_bound(B: int, m: int, dtype) -> dict:
 def reset_counts() -> None:
     torch.cuda.synchronize()
     gram.launches = chol.launches = chol.chol_inv_launches = 0
+    panel_chol.cholesky_launches = panel_chol.tri_inv_launches = 0
 
 
 def counts() -> dict:
-    return {"gram": gram.launches, "trtri": chol.launches, "cholinv": chol.chol_inv_launches}
+    return {"gram": gram.launches, "trtri": chol.launches, "cholinv": chol.chol_inv_launches,
+            "panel_chol": panel_chol.cholesky_launches,
+            "panel_tri_inv": panel_chol.tri_inv_launches}
+
+
+@contextlib.contextmanager
+def route(mode: str):
+    """ExactGP's likelihood route (``use_fused_likelihood``) while the block
+    runs; "auto" again after it."""
+    gpax_torch.set_config(use_fused_likelihood=mode)
+    yield
+    gpax_torch.set_config(use_fused_likelihood="auto")
 
 
 def require_launches(path: str, launched: dict, kernels) -> None:
@@ -477,6 +518,120 @@ def check_k3(dev) -> dict:
     return {"max_abs_err": worst, **timing}
 
 
+def panel_compare(label: str, K: torch.Tensor):
+    """K4 and K5 (``panel_chol_factors``) against their twins on K (…, n, n):
+    K4's L against ``cholesky_ex``'s, K5's Wᵀ against the twin's on K4's own
+    L, ‖L·W − I‖ and ‖W·L − I‖, and ‖tril(L·Lᵀ − K)‖, with the tolerances
+    of PANEL_REL_FLOOR. An input the twin cannot factor must come back
+    non-finite from K4 too.
+    Returns K4's and K5's max|err| against their twins."""
+    L, W = panel_chol.panel_chol_factors(K)
+    L_t = panel_chol.panel_cholesky_twin(K)
+    n, dtype = K.shape[-1], K.dtype
+    fin, fin_t = bool(torch.isfinite(L).all()), bool(torch.isfinite(L_t).all())
+    if not (fin and fin_t):
+        print(f"K4/K5 {label}: finite L {fin}, twin {fin_t}", flush=True)
+        if fin != fin_t:
+            fail(f"K4 and its twin disagree on whether {label} factors")
+        return 0.0, 0.0
+    WT_t = panel_chol.panel_tri_inv_t_twin(L)
+    eps = torch.finfo(dtype).eps
+    kappa = (L.abs() @ W.abs()).amax().item()
+    tol_L = max(PANEL_REL_FLOOR[dtype], 2 * n * eps * kappa**2)
+    tol_W = max(PANEL_REL_FLOOR[dtype], 2 * n * eps * kappa)
+    tol_fac = 2 * n * eps
+    err_L = (L - L_t).abs().max().item()
+    err_W = (W.mT - WT_t).abs().max().item()
+    rel_L = err_L / L_t.abs().max().item()
+    rel_W = err_W / WT_t.abs().max().item()
+    eye = torch.eye(n, device=K.device, dtype=dtype)
+    r_inv = max((L @ W - eye).abs().max().item(), (W @ L - eye).abs().max().item())
+    # both factorizations read K's lower triangle only (a float32 gram's r²
+    # is symmetric only to rounding)
+    r_fac = (torch.tril(L @ L.mT - K).abs().max() / K.abs().max()).item()
+    print(f"K4/K5 {label}: kappa {kappa:.3e}; L rel={rel_L:.3e} (tol {tol_L:.1e}) "
+          f"W^T rel={rel_W:.3e} max(|LW-I|,|WL-I|)={r_inv:.3e} (tol {tol_W:.1e}) "
+          f"|LLt-K|/|K|={r_fac:.3e} (tol {tol_fac:.1e})", flush=True)
+    if not (rel_L <= tol_L and rel_W <= tol_W and r_inv <= tol_W and r_fac <= tol_fac):
+        fail(f"K4/K5 check failed at {label}")
+    return err_L, err_W
+
+
+def composed_factors(K: torch.Tensor):
+    """The port's factor path without its jitter: ``cholesky_ex`` and
+    ``blocked_trtri`` (K2), the pair K4/K5 competes with."""
+    L = torch.linalg.cholesky_ex(K)[0]
+    return L, chol.blocked_trtri(L)
+
+
+def panel_bound(n: int, dtype) -> dict:
+    """K4 or K5 alone on one n×n matrix: read n², write n²; n³/3 flops."""
+    return bound(2 * n * n * torch.finfo(dtype).bits // 8, n**3 / 3, dtype)
+
+
+def time_panel(label: str, K: torch.Tensor, iters: int) -> dict:
+    """K4, K5, their twins, the library calls and the pair against the
+    composed factor on one matrix K (n, n), kernel and plain in turns."""
+    n, dtype = K.shape[-1], K.dtype
+    L = panel_chol.panel_cholesky(K)
+    eye = torch.eye(n, device=K.device, dtype=dtype)
+    t4, t4_twin = paired_ms(lambda: panel_chol.panel_cholesky(K),
+                            lambda: panel_chol.panel_cholesky_twin(K), iters)
+    t4_lib = cuda_ms(lambda: torch.linalg.cholesky_ex(K), iters)
+    t5, t5_twin = paired_ms(lambda: panel_chol.panel_tri_inv_t(L),
+                            lambda: panel_chol.panel_tri_inv_t_twin(L), iters)
+    t5_lib = cuda_ms(lambda: torch.linalg.solve_triangular(L, eye, upper=False).mT, iters)
+    t_pair, t_comp = paired_ms(lambda: panel_chol.panel_chol_factors(K),
+                               lambda: composed_factors(K), iters)
+    b = panel_bound(n, dtype)
+    size = torch.finfo(dtype).bits // 8
+    reread = n**3 / (2 * chol.TILE) * size
+    print(f"K4/K5 time {label}: K4 {t4:.4f} ms, twin {t4_twin:.4f}, cholesky_ex {t4_lib:.4f} | "
+          f"K5 {t5:.4f} ms, twin {t5_twin:.4f}, solve_triangular(L, I)^T {t5_lib:.4f} | "
+          f"pair {t_pair:.4f} ms, cholesky_ex+blocked_trtri {t_comp:.4f} | bound each "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes {2 * n * n * size / 1e6:.1f} MB, "
+          f"left-looking re-reads {reread / 1e9:.2f} GB)", flush=True)
+    return {"k4": {"ms": t4, "plain_ms": t4_twin, "library_ms": t4_lib, **b},
+            "k5": {"ms": t5, "plain_ms": t5_twin, "library_ms": t5_lib, **b}}
+
+
+def check_panel_nan(dev, dtype) -> None:
+    """An indefinite matrix beside a good one in a batch: K4 and K5 leave the
+    good one and the bad one's panels before the failing pivot finite, and
+    give NaN from that pivot on, in column 200 of L and rows 200… of W."""
+    name = str(dtype).replace("torch.", "")
+    K = _spd(300, 2, 7, dev, dtype)
+    K[1, 200, 200] = -1.0
+    L, W = panel_chol.panel_chol_factors(K)
+    nan_ok = (bool(torch.isfinite(L[0]).all()) and bool(torch.isfinite(W[0]).all())
+              and bool(torch.isfinite(L[1, :200, :200]).all())
+              and bool(torch.isnan(L[1, 200:, 200]).all())
+              and not bool(torch.isfinite(W[1, 200:, :200]).any()))
+    print(f"K4/K5 {name} indefinite matrix: NaN from the failing pivot on: {nan_ok}",
+          flush=True)
+    if not nan_ok:
+        fail(f"K4/K5 do not propagate NaN from an indefinite pivot ({name})")
+
+
+def check_panel(dev):
+    """K4/K5 against their twins in float32 and float64 on A·Aᵀ/n + ½I at
+    n = 8192, a ragged n = 4000 and a batch of 4 at n = 1024, and on an
+    indefinite matrix, which must come back NaN from the bad pivot on; then
+    timed at n = 8192 in both dtypes. Returns K4's and K5's max|err|."""
+    worst = np.zeros(2)
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for n, B in PANEL_CASES:
+            K = _spd(n, B, n + B, dev, dtype)
+            worst = np.maximum(worst, panel_compare(f"{name} n={n} B={B}", K))
+            if (n, B) == PANEL_CASES[0]:
+                time_panel(f"{name} n={n}", K[0], 5)
+            del K
+            torch.cuda.empty_cache()
+        check_panel_nan(dev, dtype)
+    return worst
+
+
 def bench_data(n: int):
     """The data of bench.py's ExactGP config: x ~ U(-2, 2), y = sin(2x) + 0.1ε."""
     rng = np.random.default_rng(0)
@@ -485,34 +640,102 @@ def bench_data(n: int):
     return X, y
 
 
+POTENTIAL_Z = {"k_length": [np.log(0.7)], "k_scale": np.log(1.3), "noise": np.log(0.1)}
+
+
+def potential_and_grad(gp, X, y, device):
+    """(potential, its gradient) of gp.model on (X, y) at POTENTIAL_Z, with
+    the potential function and a closure that re-evaluates both."""
+    info = initialize_model(gp.model, torch.Generator(device=device).manual_seed(0), (X, y))
+    zz = {k: torch.tensor(v, dtype=torch.float32, device=device, requires_grad=True)
+          for k, v in POTENTIAL_Z.items()}
+
+    def value_and_grad():
+        u = info.potential_fn(zz)
+        return u, torch.autograd.grad(u, list(zz.values()))
+
+    u, grads = value_and_grad()
+    return u.item(), torch.cat([g.reshape(-1) for g in grads]).cpu(), value_and_grad
+
+
 def check_potential(dev) -> None:
-    """ExactGP potential and gradient at a fixed point: CUDA kernels vs the
-    CPU twins at n = 512. Tolerance 5e-3 relative: the two float32 grams
-    differ by ~1e-6 relative, which K's condition number (~7e3 here,
-    n·k_scale/noise) can amplify; the float64 factor path adds little."""
+    """ExactGP potential and gradient at a fixed point at n = 512, on the
+    composed and the fused likelihood route: CUDA kernels vs the CPU twins
+    on each route, and the routes against each other on each device.
+    Tolerance 5e-3 relative: the two float32 grams differ by ~1e-6
+    relative, which K's condition number (~7e3 here, n·k_scale/noise) can
+    amplify; the float64 factor path adds little, and the routes differ only
+    in where the diagonal's float32 sum rounds and in the backward's order."""
     X, y = bench_data(N_MAIN)
     gp = gpax_torch.ExactGP(1, "RBF")
-    z = {"k_length": [np.log(0.7)], "k_scale": np.log(1.3), "noise": np.log(0.1)}
-    out = []
-    for device in ("cpu", dev):
-        Xd = torch.as_tensor(X[:512], device=device)
-        yd = torch.as_tensor(y[:512], device=device)
-        info = initialize_model(gp.model, torch.Generator(device=device).manual_seed(0), (Xd, yd))
-        zz = {k: torch.tensor(v, dtype=torch.float32, device=device, requires_grad=True)
-              for k, v in z.items()}
-        u = info.potential_fn(zz)
-        grads = torch.autograd.grad(u, list(zz.values()))
-        out.append((u.item(), torch.cat([g.reshape(-1) for g in grads]).cpu()))
-    (u_cpu, g_cpu), (u_gpu, g_gpu) = out
-    rel_u = abs(u_gpu - u_cpu) / abs(u_cpu)
-    rel_g = ((g_gpu - g_cpu).abs().max() / g_cpu.abs().max()).item()
-    print(f"potential n=512: cuda {u_gpu:.6f} cpu {u_cpu:.6f} rel {rel_u:.2e}; "
-          f"grad rel {rel_g:.2e} (tol 5e-3)", flush=True)
-    if not (rel_u <= 5e-3 and rel_g <= 5e-3):
-        fail("ExactGP potential on the card disagrees with the CPU twins")
+    out = {}
+    for mode in ("never", "always"):
+        with route(mode):
+            for device in ("cpu", dev):
+                Xd = torch.as_tensor(X[:512], device=device)
+                yd = torch.as_tensor(y[:512], device=device)
+                out[mode, str(device)] = potential_and_grad(gp, Xd, yd, device)[:2]
+    pairs = [(("never", "cpu"), ("never", str(dev))), (("always", "cpu"), ("always", str(dev))),
+             (("never", "cpu"), ("always", "cpu")), (("never", str(dev)), ("always", str(dev)))]
+    for a, b in pairs:
+        (u_a, g_a), (u_b, g_b) = out[a], out[b]
+        rel_u = abs(u_b - u_a) / abs(u_a)
+        rel_g = ((g_b - g_a).abs().max() / g_a.abs().max()).item()
+        print(f"potential n=512 {a} vs {b}: {u_a:.6f} vs {u_b:.6f} rel {rel_u:.2e}; "
+              f"grad rel {rel_g:.2e} (tol 5e-3)", flush=True)
+        if not (rel_u <= 5e-3 and rel_g <= 5e-3):
+            fail(f"ExactGP potential {a} disagrees with {b}")
 
 
-def main_path(dev) -> dict:
+def fused_crossover(dev) -> int:
+    """Likelihood+grad (the potential and its gradient, as a leapfrog calls
+    them) on the fused and the composed route at each n of FUSED_NS, timed
+    in two rounds of turns (composed, fused, fused, composed); returns the
+    largest n at which the fused route's mean was faster (0 if at none)."""
+    X, y = bench_data(max(FUSED_NS))
+    gp = gpax_torch.ExactGP(1, "RBF")
+    crossover = 0
+    print("likelihood+grad ms on the H100: n, fused, composed, fused/composed "
+          "(means of 4 timings; [min, max] of each)", flush=True)
+    for n in FUSED_NS:
+        Xd = torch.as_tensor(X[:n], device=dev)
+        yd = torch.as_tensor(y[:n], device=dev)
+        step = potential_and_grad(gp, Xd, yd, dev)[2]
+        iters = 5 if n >= 4096 else 20
+        t = {"never": [], "always": []}
+        for mode in ("never", "always", "always", "never") * 2:
+            with route(mode):
+                t[mode].append(cuda_ms(step, iters))
+        fused, composed = np.mean(t["always"]), np.mean(t["never"])
+        print(f"  {n} {fused:.4f} {composed:.4f} {fused / composed:.4f} "
+              f"[{min(t['always']):.4f}, {max(t['always']):.4f}] "
+              f"[{min(t['never']):.4f}, {max(t['never']):.4f}]", flush=True)
+        if fused < composed:
+            crossover = n
+    print(f"fused/composed crossover: the fused route is faster up to n = {crossover}; "
+          f"committed fused_likelihood_max_n = {gpax_torch.get_config().fused_likelihood_max_n}",
+          flush=True)
+    return crossover
+
+
+def auto_routes(dev) -> None:
+    """Which route "auto" takes for ExactGP at n = 4096 and for viGP at
+    config 2 (2455 observed pixels, Matérn 2-D), on the card."""
+    params = {"k_length": torch.ones(1, device=dev), "k_scale": torch.ones((), device=dev),
+              "period": None}
+    gp = gpax_torch.ExactGP(1, "RBF")
+    vgp = gpax_torch.viGP(2, "Matern")
+    names = {True: "fused", False: "composed"}
+    exact = gp._fused_likelihood_ok(torch.zeros((N_MAIN, 1), device=dev), params)
+    vigp = vgp._fused_likelihood_ok(torch.zeros((2455, 2), device=dev),
+                                    dict(params, k_length=torch.ones(2, device=dev)))
+    print(f"route of \"auto\": ExactGP n={N_MAIN} {names[exact]}, viGP config2 n=2455 "
+          f"{names[vigp]}", flush=True)
+
+
+def main_path(dev, mode: str) -> dict:
+    """The ExactGP fit and predict, with the fit's likelihood on the route
+    ``mode`` ("never": composed, "always": fused)."""
     X_np, y_np = bench_data(N_MAIN)
     X = torch.as_tensor(X_np, device=dev)
     y = torch.as_tensor(y_np, device=dev)
@@ -522,9 +745,10 @@ def main_path(dev) -> dict:
     reset_counts()
     reset_host_syncs()
     t0 = time.perf_counter()
-    gp.fit(k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES,
-           max_tree_depth=MAX_DEPTH, print_summary=False, progress_bar=False)
-    torch.cuda.synchronize()
+    with route(mode):
+        gp.fit(k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES,
+               max_tree_depth=MAX_DEPTH, print_summary=False, progress_bar=False)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     syncs = host_syncs()
     fit_launch = counts()
@@ -559,7 +783,7 @@ def main_path(dev) -> dict:
         "launches_fit": fit_launch, "launches_predict": pred_launch,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    print("main path: " + json.dumps(summary), flush=True)
+    print(f"main path, use_fused_likelihood={mode}: " + json.dumps(summary), flush=True)
     if not finite:
         fail("non-finite posterior samples")
     if not 0.5 <= accept <= 0.99:
@@ -617,6 +841,47 @@ def check_main_shapes(gp, chunk: int) -> None:
           flush=True)
     del L, W
     torch.cuda.empty_cache()
+
+
+def panel_path(gp):
+    """K4/K5's path: ``panel_chol_factors`` on the main path's own gram, the
+    fit's k_XX for its first posterior draw (as ``check_main_shapes`` takes
+    it) with the factor path's base jitter 4·n·eps, in float64 (the factor
+    path's dtype) and float32, with the launches counted; then K4/K5
+    against their twins on those grams, and timed on the float64 one."""
+    X = gp.X_train
+    s = {k: v[:1] for k, v in gp.get_samples().items()}
+    n = X.shape[0]
+    K = gp.kernel(X, X, s, s["noise"])
+    K.diagonal(dim1=-2, dim2=-1).add_(4.0 * n * torch.finfo(torch.float32).eps)
+    grams = {torch.float64: K.double(), torch.float32: K}
+    reset_counts()
+    for Kd in grams.values():
+        L, W = panel_chol.panel_chol_factors(Kd)
+    torch.cuda.synchronize()
+    launched = {"fit gram": counts()}
+    del L, W
+    require_launches("ExactGP panel factors", launched, ("panel_chol", "panel_tri_inv"))
+    worst = np.zeros(2)
+    for dtype, Kd in grams.items():
+        name = str(dtype).replace("torch.", "")
+        worst = np.maximum(worst, panel_compare(f"{name} fit gram B=1 n={n}", Kd))
+    timing = time_panel(f"float64 fit gram n={n}", grams[torch.float64][0], 10)
+    del grams, K
+    torch.cuda.empty_cache()
+    return launched, worst, timing
+
+
+def check_fused_posterior(composed: dict, fused: dict) -> None:
+    """The fused fit's posterior means within FUSED_SD posterior sd of the
+    composed fit's (``tests/test_fused_density.py:105-108``)."""
+    for site in ("k_length", "k_scale", "noise"):
+        mf, mc = fused[site].float().mean().item(), composed[site].float().mean().item()
+        sc = composed[site].float().std().item() + 1e-6
+        print(f"fused vs composed posterior {site}: mean {mf:.5f} vs {mc:.5f}, "
+              f"|diff|/sd {abs(mf - mc) / sc:.3f} (tol {FUSED_SD})", flush=True)
+        if not abs(mf - mc) < FUSED_SD * sc:
+            fail(f"the fused fit's posterior mean of {site} is off the composed fit's")
 
 
 def sparse_data(n: int):
@@ -784,11 +1049,21 @@ def main() -> None:
     k1 = check_k1(dev)
     k2 = check_k2(dev)
     k3 = check_k3(dev)
+    k45_err = check_panel(dev)
     check_potential(dev)
+    fused_crossover(dev)
+    auto_routes(dev)
     paths = {}
-    paths["ExactGP"], gp, chunk = main_path(dev)
+    paths["ExactGP"], gp, chunk = main_path(dev, "never")
     check_main_shapes(gp, chunk)
+    paths["ExactGP panel factors"], panel_err, k45 = panel_path(gp)
+    composed = gp.get_samples()
     del gp
+    torch.cuda.empty_cache()
+    paths["ExactGP fused"], gp, _ = main_path(dev, "always")
+    check_fused_posterior(composed, gp.get_samples())
+    del gp, composed
+    torch.cuda.empty_cache()
     for label, n, steps in SPARSE_PHASES:
         paths[f"viSparseGP {label}"], model = sparse_path(label, n, steps)
         check_sparse_shapes(label, model)
@@ -801,6 +1076,7 @@ def main() -> None:
         by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}
         return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
+    panel_err = np.maximum(panel_err, k45_err)
     kernels = [
         {"name": "gram", "route": "cuda", "source": "gpax_torch/csrc/gram.cu",
          "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram"), **k1},
@@ -808,6 +1084,12 @@ def main() -> None:
          "replaces": "gpax_tpu/ops/chol.py:221", **launches("trtri"), **k2},
         {"name": "tile_chol_inv", "route": "cuda", "source": "gpax_torch/csrc/cholinv.cu",
          "replaces": "gpax_tpu/ops/chol.py:55", **launches("cholinv"), **k3},
+        {"name": "panel_cholesky", "route": "cuda", "source": "gpax_torch/csrc/panel_chol.cu",
+         "replaces": "scripts/panel_chol.py:128", **launches("panel_chol"),
+         "max_abs_err": float(panel_err[0]), **k45["k4"]},
+        {"name": "panel_tri_inv_t", "route": "cuda", "source": "gpax_torch/csrc/panel_chol.cu",
+         "replaces": "scripts/panel_chol.py:170", **launches("panel_tri_inv"),
+         "max_abs_err": float(panel_err[1]), **k45["k5"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,6 +12,10 @@ thresholds were measured on a TPU; they return only after the H100 has
 measured them. The port's one WᵀW mode, ``"float64"``, departs from the JAX
 package's float32 ``"highest"``: see ``ops/linalg.py``. Kernels are chosen
 by device, not by a switch.
+
+``use_fused_likelihood`` chooses a route, not a kernel: ExactGP's fused
+likelihood (``ops/fused_density.py``) and its composed one both launch K1
+and K2 on a CUDA tensor and take their twins on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 # the one mode of each precision field that is ported
 _PORTED_MODES = {"gram_precision": "highest", "wtw_precision": "float64"}
+_FUSED_MODES = ("auto", "always", "never")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,11 +41,28 @@ class Config:
         wtw_precision: precision of the factor path and the backward's
             K⁻¹ = WᵀW; only ``"float64"``: Cholesky, K2's inverse and WᵀW in
             float64 (``ops/linalg.py`` says why).
+        use_fused_likelihood: ExactGP's likelihood route (``models/gp.py``,
+            ``_fused_likelihood_ok``): ``"auto"`` takes the fused op on a
+            CUDA tensor with n ≤ ``fused_likelihood_max_n``, ``"always"``
+            wherever it applies (the CPU tests), ``"never"`` the composed
+            route.
+        fused_likelihood_max_n: the largest n at which ``"auto"`` takes the
+            fused route.
     """
 
     default_jitter: float = 1e-6
     gram_precision: str = "highest"
     wtw_precision: str = "float64"
+    use_fused_likelihood: str = "auto"
+    # The largest n at which the fused route's likelihood+grad was faster in
+    # chip_smoke.py's table (fused and composed in turns, n = 512 to 8192)
+    # on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit, in each of
+    # three runs: fused/composed 0.898, 0.963, 0.994, 0.949, 0.903; 0.940,
+    # 0.845, 1.135, 0.998, 0.919; 0.814, 1.016, 1.112, 0.975, 0.908. At
+    # 1024-4096 the routes are within the turns' spread; at 512 and 8192
+    # the fused one wins. 8192 is also the largest n measured: above it
+    # "auto" keeps the composed route.
+    fused_likelihood_max_n: int = 8192
 
 
 _config = Config()
@@ -64,6 +86,9 @@ def set_config(**kwargs) -> Config:
             raise NotImplementedError(
                 f"{name}={kwargs[name]!r}: only {mode!r} is ported; the other "
                 "modes wait for H100 measurements")
+    if kwargs.get("use_fused_likelihood", "auto") not in _FUSED_MODES:
+        raise ValueError(f"use_fused_likelihood={kwargs['use_fused_likelihood']!r}: "
+                         f"one of {_FUSED_MODES}")
     _config = dataclasses.replace(_config, **kwargs)
     pin_fp32_matmul()
     return _config

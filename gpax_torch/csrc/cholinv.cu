@@ -11,11 +11,8 @@
 //
 // Per block, the tile of A sits in dynamic shared memory and is overwritten
 // by L in its lower triangle:
-//   1. right-looking Cholesky: at step j, l_i = A[i][j] / sqrt(A[j][j]) for
-//      i >= j (the 128 threads of the first half, one row each, into a
-//      shared vector), then A[i][k] -= l_i l_k for j < k <= i, the 256
-//      threads taking one column and every second row each, so the warps of
-//      a row read neighbouring A[i][k] and the same l_i;
+//   1. the right-looking Cholesky of tile_chol.cuh (shared with K4's
+//      diagonal tiles), 256 threads;
 //   2. the forward substitution for W of tile_inv.cuh, K2's loop, one column
 //      per thread of the first 128.
 // In float32 W's tile sits in shared memory beside A's (2 x 64 KB); in
@@ -33,30 +30,18 @@
 // (one block per matrix) to fill more than one SM. At one matrix it uses one
 // of 132 SMs.
 //
-// The pivot's scale is the IEEE square root and division, not rsqrtf: the
-// special-function unit's rsqrtf (up to 2 ulp off) left each column of L
-// scaled by a rounding error that the recursion's Schur updates carried
-// into the later leaves, and float32 chol_inv of a near-singular m = 1000
-// gram (kappa 2.9e6, one the library's float32 Cholesky factors) came back
-// NaN; with the division it factors it (PERF.md, probes/sparse_precision).
-//
-// Nothing is clamped: a negative pivot gives sqrt = NaN, a zero one a
-// division by zero (inf or NaN), and NaN spreads through the trailing update
-// to every later column and into W, as the Pallas kernel's rsqrt does. The
-// caller's jitter escalation (safe_chol_inv) relies on that.
+// The pivot's scale is the IEEE square root and division, and nothing is
+// clamped: a bad pivot's NaN reaches L and W (tile_chol.cuh says why both).
+// The caller's jitter escalation (safe_chol_inv) relies on that.
 
 #include <cuda_runtime.h>
 
-#include "tile_inv.cuh"
+#include "tile_chol.cuh"
 
 namespace {
 
 constexpr int kT = gpax::kTile;
-constexpr int kThreads = 256;
-constexpr int kRowGroups = kThreads / kT;
-
-__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
-__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+constexpr int kThreads = gpax::kCholThreads;
 
 template <typename T>
 struct CholTiles {
@@ -78,22 +63,7 @@ tile_chol_inv_kernel(const T* __restrict__ A, T* __restrict__ L, T* __restrict__
   for (int e = tid; e < kT * kT; e += kThreads) As[e] = A[base + e];
   __syncthreads();
 
-  for (int j = 0; j < kT; ++j) {
-    T v = 0;
-    if (g == 0) {
-      v = c >= j ? As[c * kT + j] / sqrt_(As[j * kT + j]) : T(0);
-      lv[c] = v;
-    }
-    __syncthreads();
-    // column j of L; the update below touches only columns k > j
-    if (g == 0 && c >= j) As[c * kT + j] = v;
-    if (c > j) {
-      const T lk = lv[c];
-      for (int i = j + 1 + g; i < kT; i += kRowGroups)
-        if (c <= i) As[i * kT + c] = gpax::fma_(-lv[i], lk, As[i * kT + c]);
-    }
-    __syncthreads();
-  }
+  gpax::tile_cholesky(As, lv);
 
   for (int e = tid; e < kT * kT; e += kThreads)
     L[base + e] = (e % kT) <= (e / kT) ? As[e] : T(0);

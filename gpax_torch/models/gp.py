@@ -6,15 +6,16 @@ Same constructor, priors (LogNormal(0, 1) noise, ARD lengthscales under an
 ``fit``/``predict`` lifecycle as the JAX package. Every entry point runs on
 the CUDA card unless the caller passes ``device="cpu"`` (or another device):
 ``device=None`` means the card, inputs of any kind are moved there, and
-without a card it raises. The likelihood is the
-composed path: kernel (K1 for RBF/Matérn) → ``MultivariateNormal`` →
+without a card it raises. The likelihood takes one of two routes, chosen by
+``_fused_likelihood_ok`` and the config's ``use_fused_likelihood``: the
+fused op ``ops.fused_density.gp_mvn_log_prob`` (K1, the float64 factor with
+K2's blocked inverse, closed-form θ-gradients), or the composed path:
+kernel (K1 for RBF/Matérn) → ``MultivariateNormal`` →
 ``ops.linalg.mvn_log_prob_centered`` (Cholesky, K2's blocked inverse,
 closed-form backward). ``predict`` builds the grams and factors of a chunk
 of posterior draws at once; chunks are sized from the device's free memory.
 
-Not ported: the fused gram→density likelihood (the next slice; its n
-crossover must come from the H100), the TPU auto-segmenting and the XLA
-program cache.
+Not ported: the TPU auto-segmenting and the XLA program cache.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from .. import ppl
 from ..config import get_config
 from ..infer import MCMC, NUTS
 from ..kernels import get_kernel
+from ..ops.fused_density import gp_mvn_log_prob
 from ..ops.linalg import gp_predictive_mean_var, gp_predictive_moments, robust_mvn_sample
 from ..utils.utils import device_memory_budget, resolve_device, spawn, split_in_batches
 
@@ -51,13 +53,19 @@ class ExactGP:
         noise_prior: deprecated prior program for the noise.
         noise_prior_dist: prior over the noise variance (default LogNormal(0, 1)).
         lengthscale_prior_dist: prior over lengthscales (default LogNormal(0, 1)).
-        dtype: dtype of the data and hyperparameters (float32; the CUDA
-            kernels take float32 only).
+        dtype: dtype of the data and hyperparameters (float32, which K1
+            and the fused likelihood take; the factor path runs float64
+            whatever it is).
     """
 
     _exact_moments_ok = True
     _default_dense_mass = False
     _data_attrs = ("X_train", "y_train")  # moved together between devices
+    # ExactGP.model treats X as constant data: the fused likelihood returns a
+    # zero cotangent for X. A subclass whose X depends on parameters (latent
+    # inputs) must set this False or override model, or its gradients
+    # through the inputs vanish. Read by _fused_likelihood_ok.
+    _input_is_constant = True
 
     def __init__(
         self,
@@ -108,8 +116,45 @@ class ExactGP:
             if self.mean_fn_prior is not None:
                 args += [self.mean_fn_prior()]
             f_loc = f_loc + self.mean_fn(*args).squeeze()
-        k = self.kernel(X, X, kernel_params, noise, **kwargs)
-        ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)
+        if y is not None and self._fused_likelihood_ok(X, kernel_params):
+            # one autograd node from the gram to the density, closed-form
+            # θ-gradients (ops/fused_density.py)
+            jitter = kwargs.get("jitter")
+            if jitter is None:
+                jitter = get_config().default_jitter
+            # noise + jitter (the kernels' diagonal) + the θ-independent
+            # base regularization the composed factor path adds
+            noise_eff = noise + jitter + 4.0 * X.shape[0] * torch.finfo(torch.float32).eps
+            kind = "rbf" if self.kernel_name == "RBF" else "matern52"
+            lp = gp_mvn_log_prob(X.to(torch.float32), kernel_params["k_length"],
+                                 kernel_params["k_scale"], noise_eff, y - f_loc, kind)
+            ppl.factor("y_log_lik", lp)
+        else:
+            k = self.kernel(X, X, kernel_params, noise, **kwargs)
+            ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)
+
+    def _fused_likelihood_ok(self, X: torch.Tensor, kernel_params) -> bool:
+        """Whether ``model`` takes the fused likelihood (``gp.py:186-212``):
+        the RBF/Matérn hyperparameterization on 2-D float32 data with X
+        constant, and then ``use_fused_likelihood="always"``, or ``"auto"``
+        on a CUDA tensor with n ≤ ``fused_likelihood_max_n``. The JAX rule's
+        sharded-linalg test has no counterpart: ``parallel/`` is not ported
+        and ``distributed_chol`` will not be (ROADMAP slice 8)."""
+        cfg = get_config()
+        if cfg.use_fused_likelihood == "never":
+            return False
+        if not getattr(type(self), "_input_is_constant", False):
+            return False  # latent-input subclass: X needs real gradients
+        if self.kernel_name not in ("RBF", "Matern"):
+            return False
+        if set(kernel_params) - {"k_length", "k_scale", "period"} or \
+                kernel_params.get("period") is not None:
+            return False
+        if X.ndim != 2 or torch.promote_types(X.dtype, torch.float32) != torch.float32:
+            return False
+        if cfg.use_fused_likelihood == "always":
+            return True
+        return X.device.type == "cuda" and X.shape[0] <= cfg.fused_likelihood_max_n
 
     def _sample_noise(self) -> torch.Tensor:
         noise_dist = self.noise_prior_dist

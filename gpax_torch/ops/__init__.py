@@ -1,4 +1,5 @@
 from .chol import blocked_trtri, chol_inv
+from .fused_density import gp_mvn_log_prob
 from .linalg import (
     chol_tri_factors,
     gp_predictive_mean_var,
@@ -9,6 +10,7 @@ from .linalg import (
     safe_chol_inv,
     safe_cholesky,
 )
+from .panel_chol import panel_chol_factors, panel_cholesky, panel_tri_inv_t
 
 __all__ = [
     "blocked_trtri",
@@ -21,4 +23,8 @@ __all__ = [
     "gp_predictive_moments",
     "gp_predictive_mean_var",
     "mvn_sample_from_cov",
+    "gp_mvn_log_prob",
+    "panel_cholesky",
+    "panel_tri_inv_t",
+    "panel_chol_factors",
 ]

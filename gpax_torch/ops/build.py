@@ -28,8 +28,10 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gpax_torch_kernels"
-SOURCES = ("gram.cu", "trtri.cu", "cholinv.cu")
-HEADERS = ("tile_inv.cuh",)  # K2's substitution loop, shared with K3
+SOURCES = ("gram.cu", "trtri.cu", "cholinv.cu", "panel_chol.cu")
+# K2's substitution loop (shared with K3-K5) and K3's tile factorization
+# (shared with K4)
+HEADERS = ("tile_inv.cuh", "tile_chol.cuh")
 # no --use_fast_math: K1's expf/sqrtf must be the accurate ones
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -58,6 +60,12 @@ def _declare(lib) -> None:
         entry.restype = i
     for entry in (lib.gpax_tile_chol_inv_f32, lib.gpax_tile_chol_inv_f64):
         entry.argtypes = [p, p, p, i, p]
+        entry.restype = i
+    lib.gpax_panel_grid.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.gpax_panel_grid.restype = i
+    for entry in (lib.gpax_panel_cholesky_f32, lib.gpax_panel_cholesky_f64,
+                  lib.gpax_panel_tri_inv_t_f32, lib.gpax_panel_tri_inv_t_f64):
+        entry.argtypes = [p, p, p, p, i, i, i, p]
         entry.restype = i
 
 

@@ -42,6 +42,17 @@ def _map(r2: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
+def _maps(r2: torch.Tensor, kind: str):
+    """(map(r²), map'(r²)) for the stationary kernel family
+    (``fused_density.py:54-66``): map' = −½map for RBF,
+    −(5/6)(1+√5r)e^(−√5r) for Matérn-5/2, 0 at r² ≤ 1e-10."""
+    m = _map(r2, kind)
+    if kind == "rbf":
+        return m, -0.5 * m
+    s5r = _SQRT5 * torch.sqrt(torch.clamp(r2, min=1e-10))
+    return m, torch.where(r2 > 1e-10, -(5.0 / 6.0) * (1.0 + s5r) * torch.exp(-s5r), 0.0)
+
+
 def scaled_sq_dist(Xs: torch.Tensor, Zs: torch.Tensor) -> torch.Tensor:
     """max(‖xs‖² − 2·Xs·Zsᵀ + ‖zs‖², 0) over the last two dims (matmul form)."""
     x2 = (Xs * Xs).sum(-1)
@@ -110,13 +121,7 @@ class _Gram(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         Xs, Zs = ctx.saved_tensors
-        r2 = scaled_sq_dist(Xs, Zs)
-        if ctx.kind == "rbf":
-            dmap = -0.5 * torch.exp(-0.5 * r2)
-        else:
-            s5r = _SQRT5 * torch.sqrt(torch.clamp(r2, min=1e-10))
-            dmap = torch.where(r2 > 1e-10,
-                               -(5.0 / 6.0) * (1.0 + s5r) * torch.exp(-s5r), 0.0)
+        _, dmap = _maps(scaled_sq_dist(Xs, Zs), ctx.kind)
         w = g * dmap
         n = Xs.shape[-2]
         if ctx.symmetric:

@@ -31,7 +31,7 @@ finite.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,23 +58,25 @@ def _escalated_jitter(K: torch.Tensor, eps: float) -> torch.Tensor:
     return max(0.05, 1000.0 * K.shape[-1] * eps) * scale
 
 
-def _chol_tri_factors_ld(K: torch.Tensor, base_jitter: float = 0.0
+def _chol_tri_factors_ld(K: torch.Tensor, base_jitter: Optional[float] = 0.0
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(L, W=L⁻¹, log|L|) of K + jitter·I, all float64 (``linalg.py:71-114``).
 
     The base jitter max(4·n·eps, base_jitter), with eps of K's dtype, is a
-    θ-independent constant. Matrices whose factorization fails are refactored
-    with the escalated jitter max(0.05, 1000·n·eps)·mean(diag K). Where JAX
-    branches on device with ``lax.cond``, this reads ``info`` on the host: one
-    host sync per factorization (per batch of matrices), accepted for now and
-    counted by ``utils.host_syncs``. W comes from ``blocked_trtri``: K2 on
-    the diagonal tiles, float64 matmuls elsewhere.
+    θ-independent constant. ``base_jitter=None`` adds none: K already
+    carries its base regularization on the diagonal (the fused likelihood's
+    contract, ``ops/fused_density.py``). Matrices whose factorization fails
+    are refactored with the escalated jitter max(0.05, 1000·n·eps)·mean(diag
+    K). Where JAX branches on device with ``lax.cond``, this reads ``info``
+    on the host: one host sync per factorization (per batch of matrices),
+    accepted for now and counted by ``utils.host_syncs``. W comes from
+    ``blocked_trtri``: K2 on the diagonal tiles, float64 matmuls elsewhere.
     """
     n = K.shape[-1]
     eps = _eps(K.dtype)
     K = K.to(torch.float64)
-    j_base = max(4.0 * n * eps, base_jitter)
-    L, info = torch.linalg.cholesky_ex(_add_diag(K, j_base))
+    K_base = K if base_jitter is None else _add_diag(K, max(4.0 * n * eps, base_jitter))
+    L, info = torch.linalg.cholesky_ex(K_base)
     bad = info != 0
     if host_bool(bad.any()):
         L_big, info_big = torch.linalg.cholesky_ex(_add_diag(K, _escalated_jitter(K, eps)))

@@ -1,4 +1,4 @@
-"""CUDA kernels K1, K2 and K3 against their plain twins, on the card.
+"""CUDA kernels K1-K5 against their plain twins, on the card.
 
 These tests need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
 elsewhere. The file imports no JAX, so it runs on a machine without it:
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import gpax_torch
-from gpax_torch.ops import chol, gram, linalg
+from gpax_torch.ops import chol, fused_density, gram, linalg, panel_chol
 from gpax_torch.utils import initialize_inducing_points
 
 pytestmark = pytest.mark.cuda
@@ -258,3 +258,88 @@ def test_sparse_factor_holds_a_near_singular_m1000_gram(dev):
     W64 = torch.linalg.solve_triangular(L64, eye, upper=False)
     assert (L.double() - L64).abs().max().item() <= 1e-6 * L64.abs().max().item()
     assert (W.double() - W64).abs().max().item() <= 1e-6 * W64.abs().max().item()
+
+
+# K4/K5 vs their twins, relative to max|L| and max|Wᵀ|, and the residuals
+# ‖W·L − I‖, ‖L·Lᵀ − K‖/‖K‖ (max norms), on A·Aᵀ/n + ½I (κ ≤ ~9): sums of
+# up to n terms round to ~n·eps·κ, 2e-3 in float32 and 2e-12 in float64 at
+# n = 2048, and typically far less
+PANEL_TOL = {torch.float32: 1e-3, torch.float64: 1e-11}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,B", [(128, 1), (1000, 2), (2048, 1), (1024, 4)])
+def test_k4_k5_match_twins_and_factor(dev, dtype, n, B):
+    K = _spd_batch(B, n, dev, dtype, seed=n + B)
+    c4, c5 = panel_chol.cholesky_launches, panel_chol.tri_inv_launches
+    L, W = panel_chol.panel_chol_factors(K)
+    # one launch each, whatever the batch
+    assert (panel_chol.cholesky_launches, panel_chol.tri_inv_launches) == (c4 + 1, c5 + 1)
+    L_t = panel_chol.panel_cholesky_twin(K)
+    WT_t = panel_chol.panel_tri_inv_t_twin(L_t)
+    tol = PANEL_TOL[dtype]
+    assert (L - L_t).abs().max().item() <= tol * L_t.abs().max().item()
+    assert (W.mT - WT_t).abs().max().item() <= tol * WT_t.abs().max().item()
+    assert torch.count_nonzero(torch.triu(L, 1)) == 0
+    assert torch.count_nonzero(torch.triu(W, 1)) == 0
+    eye = torch.eye(n, device=dev, dtype=dtype)
+    assert (W @ L - eye).abs().max().item() <= tol
+    assert (L @ L.mT - K).abs().max().item() <= tol * K.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_k5_propagate_nan_on_indefinite_input(dev, dtype):
+    K = _spd_batch(2, 300, dev, dtype)
+    K[1, 200, 200] = -1.0
+    L, W = panel_chol.panel_chol_factors(K)
+    assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
+    assert torch.isfinite(L[1, :128, :128]).all()  # the panels before the bad pivot
+    assert not torch.isfinite(L[1, 200:, 200]).any() and not torch.isfinite(W[1, 200:, :200]).any()
+
+
+def test_k4_k5_reject_what_they_do_not_take(dev):
+    with pytest.raises(ValueError):
+        panel_chol.panel_cholesky_padded(torch.eye(100, device=dev)[None])
+    with pytest.raises(ValueError):
+        panel_chol.panel_tri_inv_t_padded(torch.eye(128, device=dev, dtype=torch.float16)[None])
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+def test_fused_density_on_card_matches_cpu(dev, kind):
+    """The fused likelihood op launches K1 once and K2 once on the card and
+    agrees with the CPU twins: value to 1e-4, θ-gradients to 5e-3 of their
+    max (float32 grams 1e-6 apart, amplified by κ(K) ~ 1e4)."""
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.uniform(-2, 2, (400, 2)), dtype=torch.float32)
+    y = torch.tensor(np.sin(2 * X[:, 0].numpy()) + 0.1 * rng.normal(size=400),
+                     dtype=torch.float32)
+    out = []
+    for device in ("cpu", dev):
+        p = [torch.tensor(v, device=device, requires_grad=True) for v in ([0.8, 1.3], 1.5, 0.2)]
+        k1, k2 = gram.launches, chol.launches
+        lp = fused_density.gp_mvn_log_prob(X.to(device), *p, y.to(device), kind)
+        grads = torch.autograd.grad(lp, p)
+        if device != "cpu":
+            assert (gram.launches, chol.launches) == (k1 + 1, k2 + 1)
+        out.append((lp.item(), torch.cat([g.reshape(-1) for g in grads]).cpu()))
+    (u0, g0), (u1, g1) = out
+    assert abs(u1 - u0) <= 1e-4 * abs(u0)
+    assert (g1 - g0).abs().max() <= 5e-3 * g0.abs().max()
+
+
+def test_exactgp_fit_on_the_fused_route_on_card(dev):
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.uniform(-2, 2, (256, 1)), dtype=torch.float32, device=dev)
+    y = torch.sin(2 * X[:, 0]) + 0.1 * torch.tensor(rng.normal(size=256), dtype=torch.float32,
+                                                    device=dev)
+    gpax_torch.set_config(use_fused_likelihood="always")
+    try:
+        gp = gpax_torch.ExactGP(1, "RBF")
+        k1, k2 = gram.launches, chol.launches
+        gp.fit(0, X, y, num_warmup=50, num_samples=50, print_summary=False)
+        assert gram.launches > k1 and chol.launches > k2
+    finally:
+        gpax_torch.set_config(use_fused_likelihood="auto")
+    Xn = torch.linspace(-2, 2, 100, device=dev)[:, None]
+    mean, _ = gp.predict(1, Xn, noiseless=True)
+    assert ((mean - torch.sin(2 * Xn[:, 0])) ** 2).mean().sqrt().item() < 0.05
