@@ -26,9 +26,11 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
 6. holds kernels K4 (single-launch panel Cholesky) and K5 (single-launch
    panel triangular inverse) against their twins in float32 and float64 at
    n = 8192, a ragged n = 4000 (identity padding), a batch of 4 at n = 1024
-   and an indefinite matrix that must come back NaN, and times K4, K5,
-   their twins, the library calls and the pair against the composed factor
-   (``cholesky_ex`` + ``blocked_trtri``) at n = 8192;
+   and an indefinite matrix that must come back NaN, checks K4's NaN from a
+   bad pivot at each sub-panel border of a tile, and times K4, K5, their
+   twins, the library calls and the pair against the composed factor
+   (``cholesky_ex`` + ``blocked_trtri``) at n = 8192, with K4's phase split
+   (products, diagonal step, panel TRSM);
 7. checks the ExactGP potential and gradient on the card against the CPU
    twins at n = 512 on both likelihood routes (fused and composed), and the
    routes against each other; then times likelihood+grad on both routes at
@@ -65,7 +67,8 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     launches, then holds K1 and K2 against their twins on the fitted
     model's own grams and float64 factors;
 13. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
-    bound, launches on every path), the card's line, and as the last line
+    bound, launches on every path; K4's phase split on the fit's gram),
+    the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Any failed check ends the run with a non-zero exit and no ``ok`` line. It
@@ -118,6 +121,8 @@ CHOL_INV_RESID_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
 # whatever κ (see panel_compare)
 PANEL_REL_FLOOR = {torch.float32: 1e-4, torch.float64: 1e-12}
 PANEL_CASES = ((8192, 1), (4000, 1), (1024, 4))  # (n, batch); the first is timed
+# local indices of a bad pivot in a tile: its ends and K4's sub-panel borders
+PANEL_NAN_PIVOTS = (0, 15, 16, 31, 32, 127)
 # likelihood+grad sizes of the fused/composed crossover
 FUSED_NS = (512, 1024, 2048, 4096, 8192)
 FUSED_SD = 4.0  # the fused fit's posterior means within this many posterior sd
@@ -231,7 +236,7 @@ def build_phase() -> None:
     build.library()
     print(f"build: {build.build_seconds:.2f} s -> {build.BUILD_DIR}", flush=True)
     for line in build.build_log.splitlines():
-        if "registers" in line or "smem" in line or "error" in line.lower():
+        if any(w in line.lower() for w in ("registers", "smem", "error", "entry function")):
             print(f"  ptxas: {line.strip()}")
 
 
@@ -569,9 +574,24 @@ def panel_bound(n: int, dtype) -> dict:
     return bound(2 * n * n * torch.finfo(dtype).bits // 8, n**3 / 3, dtype)
 
 
+def panel_phases(label: str, K: torch.Tensor, t4: float, reps: int = 5) -> dict:
+    """K4's phase split on K (``cholesky_phase_ms``): the mean over ``reps``
+    launches of the ms in the products, the diagonal step and the panel
+    TRSM, printed beside K4's CUDA-event time t4."""
+    split = np.mean([panel_chol.cholesky_phase_ms(K) for _ in range(reps)], axis=0)
+    total = float(split.sum())
+    tiles = K.shape[-1] // chol.TILE
+    print(f"K4 phases {label}: products {split[0]:.4f} ms ({split[0] / total:.1%}), diagonal "
+          f"step {split[1]:.4f} ms ({split[1] / total:.1%}; {split[1] / tiles:.4f} ms a panel), "
+          f"panel TRSM {split[2]:.4f} ms ({split[2] / total:.1%}); sum {total:.4f} ms, "
+          f"CUDA-event time {t4:.4f} ms", flush=True)
+    return dict(zip(("products", "diagonal", "trsm"), map(float, split)))
+
+
 def time_panel(label: str, K: torch.Tensor, iters: int) -> dict:
     """K4, K5, their twins, the library calls and the pair against the
-    composed factor on one matrix K (n, n), kernel and plain in turns."""
+    composed factor on one matrix K (n, n), kernel and plain in turns, and
+    K4's phase split."""
     n, dtype = K.shape[-1], K.dtype
     L = panel_chol.panel_cholesky(K)
     eye = torch.eye(n, device=K.device, dtype=dtype)
@@ -591,7 +611,9 @@ def time_panel(label: str, K: torch.Tensor, iters: int) -> dict:
           f"pair {t_pair:.4f} ms, cholesky_ex+blocked_trtri {t_comp:.4f} | bound each "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes {2 * n * n * size / 1e6:.1f} MB, "
           f"left-looking re-reads {reread / 1e9:.2f} GB)", flush=True)
-    return {"k4": {"ms": t4, "plain_ms": t4_twin, "library_ms": t4_lib, **b},
+    phases = panel_phases(label, K, t4)
+    return {"k4": {"ms": t4, "plain_ms": t4_twin, "library_ms": t4_lib, **b,
+                   "phases_ms": phases},
             "k5": {"ms": t5, "plain_ms": t5_twin, "library_ms": t5_lib, **b}}
 
 
@@ -611,6 +633,23 @@ def check_panel_nan(dev, dtype) -> None:
           flush=True)
     if not nan_ok:
         fail(f"K4/K5 do not propagate NaN from an indefinite pivot ({name})")
+    # a bad pivot at each sub-panel border of the second tile, one matrix each
+    K = _spd(3 * chol.TILE, len(PANEL_NAN_PIVOTS), 8, dev, dtype)
+    for b, q in enumerate(PANEL_NAN_PIVOTS):
+        K[b, chol.TILE + q, chol.TILE + q] = -1.0
+    L = panel_chol.panel_cholesky(K)
+    for b, q in enumerate(PANEL_NAN_PIVOTS):
+        ok = panel_nan_from(L[b], chol.TILE + q)
+        print(f"K4 {name} bad pivot at local index {q} of tile 1: finite before it, NaN from "
+              f"it on: {ok}", flush=True)
+        if not ok:
+            fail(f"K4 does not propagate NaN from a bad pivot at local index {q} ({name})")
+
+
+def panel_nan_from(L: torch.Tensor, q: int) -> bool:
+    """Columns of L before q finite, and every lower entry of columns q… NaN."""
+    low = torch.ones_like(L[q:, q:], dtype=torch.bool).tril()
+    return bool(torch.isfinite(L[:, :q]).all()) and bool(torch.isnan(L[q:, q:][low]).all())
 
 
 def check_panel(dev):
@@ -621,6 +660,9 @@ def check_panel(dev):
     worst = np.zeros(2)
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).replace("torch.", "")
+        probe = torch.zeros((1, chol.TILE, chol.TILE), device=dev, dtype=dtype)
+        print(f"K4/K5 {name} cooperative grid: {panel_chol._blocks(0, probe)} / "
+              f"{panel_chol._blocks(1, probe)} blocks", flush=True)
         for n, B in PANEL_CASES:
             K = _spd(n, B, n + B, dev, dtype)
             worst = np.maximum(worst, panel_compare(f"{name} n={n} B={B}", K))

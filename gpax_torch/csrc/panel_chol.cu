@@ -19,8 +19,8 @@
 //      added by a second pass after a barrier (split-K, in a fixed order, so
 //      the result does not depend on the schedule);
 //   2. one block per matrix factors the 128 x 128 diagonal tile of P in
-//      shared memory with K3's loop (tile_chol.cuh), writes L_D (zero above
-//      the diagonal) and its inverse W_D (K2's loop, tile_inv.cuh) to scratch;
+//      shared memory, blocked (tile_chol_blocked.cuh), and writes L_D
+//      (zero above the diagonal) into L and its inverse W_D to scratch;
 //   3. the panel TRSM L[rows > diagonal tile, panel j] = P W_D^T, in place:
 //      each 64-row tile reads all 128 columns of its rows before it writes.
 // K5 first inverts every diagonal tile of L at once (they are independent),
@@ -34,20 +34,32 @@
 //
 // What bounds them on an H100: each does n^3/3 flops (0.34 ms at n = 4096 at
 // 67 TFLOP/s) and moves 2 n^2 elements (0.08 ms in float64), but neither
-// bound is near. The GEMM tiles are plain shared-memory CUDA-core FMA
-// loops (no tensor cores, no TMA: a later PR's work), and K4's diagonal
-// tiles are sequential: n / 128 factorizations of 256 dependent barrier
-// steps each on one SM while the others wait, like K3's leaves. The
-// left-looking products also re-read ~n^3 / (2 * 128) elements of the left
-// factor, through L2. Measured in float64 at n = 4096: K4 13.1 ms (against
-// 2.1 for cuSOLVER's Cholesky), K5 5.8 ms (4.2 for a triangular solve
-// against I); PERF.md has the rest. In float64 one block fits an SM (132
-// KB of shared memory), in float32 three.
+// bound is near. What is:
+//   - K4's diagonal tiles are sequential: n / 128 factorizations, each on
+//     one SM while the others wait at a grid barrier. The blocked step
+//     takes 3 block barriers per 16-column sub-panel where K3's loop takes
+//     2 per column, inverts the tile in shared memory with register-tiled
+//     products and writes W_D once; its 128 pivots (an IEEE sqrt and a
+//     division each, in one warp) remain one dependent chain.
+//   - The products. In float64 they run on the tensor cores: mma.sync
+//     m8n8k4 with .f64 operands (DMMA), each warp a 32 x 32 quarter of the
+//     64 x 128 tile. Hopper's wgmma has no float64 type, so the warp-level
+//     mma.sync is its only float64 tensor-core path. The 16-deep k-slices
+//     go through shared memory, padded so that the fragment loads hit
+//     distinct banks, the next slice's loads in flight in registers. One
+//     block an SM (the tile's 132 KB) leaves 8 warps to hide latency, and
+//     there is no deeper pipeline. Float32 stays on CUDA-core FMA, because
+//     the port keeps TF32 off.
+//   - About 3 n / 128 grid barriers, and the split-K passes of the late
+//     panels. The left-looking products also re-read ~n^3 / (2 * 128)
+//     elements of the left factor, through L2.
+// Measured times and K4's phase split (phase_ns): PERF.md. In float64 one
+// block fits an SM (132 KB of shared memory), in float32 three.
 //
-// The pivot is the IEEE sqrt and division of tile_chol.cuh, and nothing is
-// clamped: an indefinite matrix's first bad pivot gives NaN in L_D and W_D,
-// which every later panel of L and W picks up through the products.
-// Float32 runs float32 FMAs (no TF32), float64 float64 FMAs.
+// The pivot is the IEEE sqrt and division, and nothing is clamped: an
+// indefinite matrix's first bad pivot gives NaN in L_D and W_D from its
+// column on, which every later panel of L and W picks up through the
+// products.
 //
 // Memory visibility: K is the only read-only operand (__restrict__); L, W^T
 // and the scratch are written and read again by other blocks after a grid
@@ -57,16 +69,16 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "tile_chol.cuh"
+#include "tile_chol_blocked.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kT = gpax::kTile;               // panel width
-constexpr int kThreads = gpax::kCholThreads;  // 256: tile_cholesky's block
-constexpr int kBM = 64, kBN = kT, kBK = 16;   // product tile: 64 rows x the panel
-constexpr int kTM = kBM / 16, kTN = kBN / 16; // 4 x 8 outputs per thread
+constexpr int kT = gpax::kTile;                  // panel width
+constexpr int kThreads = gpax::kBlockedThreads;  // 256: the diagonal step's block
+constexpr int kBM = 64, kBN = kT, kBK = 16;      // product tile: 64 rows x the panel
+constexpr int kTM = kBM / 16, kTN = kBN / 16;    // 4 x 8 outputs per thread (float32)
 constexpr int kTileElems = kBM * kBN;
 
 // the diagonal tile and the pivot column; the products' k-slices reuse it
@@ -77,20 +89,60 @@ struct PanelSmem {
 static_assert(kBK * (kBM + 1) + kBK * (kBN + 1) <= kT * kT + kT,
               "the product's k-slices fit in the diagonal tile's buffer");
 
-// acc = A[0:64, k0:k1] B[0:128, k0:k1]^T, A and B row-major with leading
-// dimensions lda and ldb. Thread (tx, ty) of 16 x 16 owns rows ty + 16 i and
-// columns tx + 16 jj. Ends with a barrier, after which every read of A and B
-// is complete (so a caller may overwrite A in place).
+// The accumulator of one 64 x 128 product tile, in the registers of the
+// block's 256 threads; each(f) calls f(row, column, value) for the thread's
+// entries.
 template <typename T>
-__device__ __forceinline__ void gemm_nt(const T* A, size_t lda, const T* B, size_t ldb,
-                                        int k0, int k1, T (&acc)[kTM][kTN], T* smem) {
-  T* As = smem;                    // [kBK][kBM + 1], k-major
-  T* Bs = smem + kBK * (kBM + 1);  // [kBK][kBN + 1]
+struct Acc;
+
+// float32, on CUDA-core FMA: thread (tx, ty) of 16 x 16 owns rows ty + 16 i
+// and columns tx + 16 jj
+template <>
+struct Acc<float> {
+  float v[kTM][kTN];
+  template <typename F>
+  __device__ __forceinline__ void each(F f) const {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < kTN; ++jj) f(ty + 16 * i, tx + 16 * jj, v[i][jj]);
+  }
+};
+
+// float64, on the tensor cores (mma.sync m8n8k4, DMMA): warp (wm, wn) of
+// 2 x 4 owns a 32 x 32 quarter-row of the tile, as 4 x 4 fragments of
+// 8 x 8; lane (g, t) = (lane / 4, lane % 4) holds row g, columns 2t and
+// 2t + 1 of each fragment
+template <>
+struct Acc<double> {
+  double v[4][4][2];
+  template <typename F>
+  __device__ __forceinline__ void each(F f) const {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int r0 = 32 * (warp / 4) + lane / 4, c0 = 32 * (warp % 4) + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) f(r0 + 8 * i, c0 + 8 * j + e, v[i][j][e]);
+  }
+};
+
+// acc = A[0:64, k0:k1] B[0:128, k0:k1]^T, A and B row-major with leading
+// dimensions lda and ldb, through shared-memory k-slices of 16. Each ends
+// with a barrier, after which every read of A and B is complete (so a
+// caller may overwrite A in place).
+__device__ __forceinline__ void gemm_nt(const float* A, size_t lda, const float* B, size_t ldb,
+                                        int k0, int k1, Acc<float>& acc, float* smem) {
+  float* As = smem;                    // [kBK][kBM + 1], k-major
+  float* Bs = smem + kBK * (kBM + 1);  // [kBK][kBN + 1]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
-    for (int jj = 0; jj < kTN; ++jj) acc[i][jj] = T(0);
+    for (int jj = 0; jj < kTN; ++jj) acc.v[i][jj] = 0.0f;
   for (int k = k0; k < k1; k += kBK) {
     for (int e = tid; e < kBM * kBK; e += kThreads)
       As[(e % kBK) * (kBM + 1) + e / kBK] = A[(e / kBK) * lda + k + e % kBK];
@@ -99,7 +151,7 @@ __device__ __forceinline__ void gemm_nt(const T* A, size_t lda, const T* B, size
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      T a[kTM], b[kTN];
+      float a[kTM], b[kTN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i) a[i] = As[kk * (kBM + 1) + ty + 16 * i];
 #pragma unroll
@@ -107,7 +159,68 @@ __device__ __forceinline__ void gemm_nt(const T* A, size_t lda, const T* B, size
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int jj = 0; jj < kTN; ++jj) acc[i][jj] = gpax::fma_(a[i], b[jj], acc[i][jj]);
+        for (int jj = 0; jj < kTN; ++jj) acc.v[i][jj] = fmaf(a[i], b[jj], acc.v[i][jj]);
+    }
+    __syncthreads();
+  }
+}
+
+constexpr int kLd = kBK + 4;  // a float64 k-slice row, padded: fragment loads hit 16 bank pairs
+static_assert((kBM + kBN) * kLd <= kT * kT + kT, "the float64 k-slices fit in the tile's buffer");
+
+// The float64 slices are row-major [row][k] (A: 64 rows, B: 128), moved as
+// 16-byte pairs, the next slice's loads from global memory in flight in
+// registers while the tensor cores work on this one.
+__device__ __forceinline__ void gemm_nt(const double* A, size_t lda, const double* B, size_t ldb,
+                                        int k0, int k1, Acc<double>& acc, double* smem) {
+  constexpr int kPairs = kBK / 2;                       // 16-byte pairs in a slice row
+  constexpr int kAp = kBM * kPairs / kThreads, kBp = kBN * kPairs / kThreads;  // 2, 4
+  double* As = smem;              // [kBM][kLd]
+  double* Bs = smem + kBM * kLd;  // [kBN][kLd]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int ar = 32 * (warp / 4) + lane / 4, br = 32 * (warp % 4) + lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc.v[i][j][0] = acc.v[i][j][1] = 0.0;
+  double2 ra[kAp], rb[kBp];
+  auto fetch = [&](int k) {
+#pragma unroll
+    for (int i = 0; i < kAp; ++i) {
+      const int e = tid + i * kThreads;
+      ra[i] = *reinterpret_cast<const double2*>(A + (e / kPairs) * lda + k + 2 * (e % kPairs));
+    }
+#pragma unroll
+    for (int i = 0; i < kBp; ++i) {
+      const int e = tid + i * kThreads;
+      rb[i] = *reinterpret_cast<const double2*>(B + (e / kPairs) * ldb + k + 2 * (e % kPairs));
+    }
+  };
+  if (k0 < k1) fetch(k0);
+  for (int k = k0; k < k1; k += kBK) {
+#pragma unroll
+    for (int i = 0; i < kAp; ++i) {
+      const int e = tid + i * kThreads;
+      *reinterpret_cast<double2*>(As + (e / kPairs) * kLd + 2 * (e % kPairs)) = ra[i];
+    }
+#pragma unroll
+    for (int i = 0; i < kBp; ++i) {
+      const int e = tid + i * kThreads;
+      *reinterpret_cast<double2*>(Bs + (e / kPairs) * kLd + 2 * (e % kPairs)) = rb[i];
+    }
+    __syncthreads();
+    if (k + kBK < k1) fetch(k + kBK);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      double a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[(ar + 8 * i) * kLd + kk + t];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[(br + 8 * j) * kLd + kk + t];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) gpax::dmma_8x8x4(acc.v[i][j], a[i], b[j]);
     }
     __syncthreads();
   }
@@ -115,16 +228,12 @@ __device__ __forceinline__ void gemm_nt(const T* A, size_t lda, const T* B, size
 
 // out = (C ? C : 0) + alpha acc on one 64 x 128 tile; C and out share ld.
 template <typename T>
-__device__ __forceinline__ void store_tile(const T (&acc)[kTM][kTN], T alpha, const T* C,
-                                           T* out, size_t ld) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int jj = 0; jj < kTN; ++jj) {
-      const size_t o = (size_t)(ty + 16 * i) * ld + tx + 16 * jj;
-      out[o] = (C ? C[o] : T(0)) + alpha * acc[i][jj];
-    }
+__device__ __forceinline__ void store_tile(const Acc<T>& acc, T alpha, const T* C, T* out,
+                                           size_t ld) {
+  acc.each([&](int r, int c, T v) {
+    const size_t o = (size_t)r * ld + c;
+    out[o] = (C ? C[o] : T(0)) + alpha * v;
+  });
 }
 
 // how many pieces each tile's k-range is cut into: enough for every block
@@ -153,7 +262,7 @@ __device__ void panel_product(cg::grid_group& grid, const T* A, const T* Bop, co
     const int kstart = a_upper ? (r0 / kT) * kT : 0;
     const int nk = (jT - kstart) / kBK;
     const int k0 = kstart + kBK * (s * nk / S), k1 = kstart + kBK * ((s + 1) * nk / S);
-    T acc[kTM][kTN];
+    Acc<T> acc;
     gemm_nt(A + mb + (size_t)r0 * n, (size_t)n, Bop + mb + (size_t)jT * n, (size_t)n, k0, k1,
             acc, smem);
     const size_t o = mb + (size_t)r0 * n + jT;
@@ -184,7 +293,7 @@ __device__ void panel_trsm(T* X, const T* Wd, size_t wd_stride, T alpha, int bat
   for (int w = blockIdx.x; w < batch * row_tiles; w += gridDim.x) {
     const int b = w / row_tiles;
     T* P = X + (size_t)b * n * n + (size_t)(row0 + (w % row_tiles) * kBM) * n + jT;
-    T acc[kTM][kTN];
+    Acc<T> acc;
     gemm_nt((const T*)P, (size_t)n, Wd + b * wd_stride, (size_t)kT, 0, kT, acc, smem);
     store_tile(acc, alpha, (const T*)nullptr, P, (size_t)n);
   }
@@ -197,35 +306,80 @@ __device__ __forceinline__ void load_tile(const T* D, int n, T* Ts) {
   __syncthreads();
 }
 
+// The device's nanosecond clock.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// K4's phase clock: with phase_ns non-null, thread 0 of block 0 reads the
+// clock after each grid barrier and adds the time since the last reading
+// to the sum of the phase that barrier ends (phase_ns[0] the products,
+// [1] the diagonal step, [2] the panel TRSM); null costs one untaken branch.
+struct PhaseClock {
+  unsigned long long* out;
+  unsigned long long last = 0, sum[3] = {0, 0, 0};
+  __device__ explicit PhaseClock(unsigned long long* phase_ns)
+      : out(blockIdx.x == 0 && threadIdx.x == 0 ? phase_ns : nullptr) {
+    if (out) last = global_ns();
+  }
+  __device__ __forceinline__ void lap(int phase) {
+    if (out) {
+      const unsigned long long t = global_ns();
+      sum[phase] += t - last;
+      last = t;
+    }
+  }
+  __device__ __forceinline__ void write() {
+    if (out) for (int i = 0; i < 3; ++i) out[i] = sum[i];
+  }
+};
+
+// float32 keeps 3 blocks an SM (85 registers a thread); float64's tile
+// leaves room for one
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-panel_cholesky_kernel(const T* __restrict__ K, T* L, T* Wd, T* part, int batch, int n) {
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 1)
+panel_cholesky_kernel(const T* __restrict__ K, T* L, T* Wd, T* part, int batch, int n,
+                      unsigned long long* phase_ns) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
+  PhaseClock clock(phase_ns);
   const size_t nn = (size_t)n * n;
   for (int jT = 0; jT < n; jT += kT) {
     // 1. the Schur update of panel j's rows >= jT (the rows above stay zero)
     panel_product(grid, (const T*)L, (const T*)L, K, T(-1), L, part, batch, n, jT,
                   (n - jT) / kBM, jT, false, smem);
     grid.sync();
-    // 2. L_D and W_D of each matrix's diagonal tile, one block per matrix
+    clock.lap(0);
+    // 2. L_D and W_D of each matrix's diagonal tile, one block per matrix,
+    //    in the swizzled tile (tile_chol_blocked.cuh); L_D (zero above the
+    //    diagonal) back into L, W_D (row-major) into the scratch
     for (int b = blockIdx.x; b < batch; b += gridDim.x) {
       T* D = L + b * nn + (size_t)jT * n + jT;
-      load_tile((const T*)D, n, smem);
-      gpax::tile_cholesky(smem, smem + kT * kT);
+      T* Wdb = Wd + (size_t)b * kT * kT;
+      T* inv = smem + kT * kT;
       for (int e = threadIdx.x; e < kT * kT; e += kThreads)
-        D[(size_t)(e / kT) * n + e % kT] = (e % kT) <= (e / kT) ? smem[e] : T(0);
-      if (threadIdx.x < kT)
-        gpax::tile_forward_subst((const T*)smem, Wd + (size_t)b * kT * kT, kT, threadIdx.x);
+        smem[gpax::tile_at<T>(e / kT, e % kT)] = D[(size_t)(e / kT) * n + e % kT];
+      __syncthreads();
+      gpax::tile_chol_inv_blocked(smem, inv);
+      for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
+        const int r = e / kT, c = e % kT;
+        D[(size_t)r * n + c] = c <= r ? smem[gpax::tile_at<T>(r, c)] : T(0);
+        Wdb[e] = c < r ? smem[gpax::tile_at<T>(c, r)] : (c == r ? inv[r] : T(0));
+      }
       __syncthreads();
     }
     grid.sync();
+    clock.lap(1);
     // 3. the panel TRSM below the diagonal tile
     panel_trsm(L, (const T*)Wd, (size_t)kT * kT, T(1), batch, n, jT + kT,
                (n - jT - kT) / kBM, jT, smem);
     grid.sync();
+    clock.lap(2);
   }
+  clock.write();
 }
 
 template <typename T>
@@ -275,18 +429,32 @@ int grid_blocks(Kernel kernel, int smem_bytes, int* blocks) {
   return (int)err;
 }
 
-template <typename Kernel, typename T>
-int launch(Kernel kernel, const T* in, T* out, T* Wd, T* part, int batch, int n, int blocks,
-           cudaStream_t stream) {
+// one cooperative launch of kernel with its arguments args, in T's shared
+// memory
+template <typename T, typename Kernel>
+int launch(Kernel kernel, void** args, int blocks, cudaStream_t stream) {
   const int bytes = PanelSmem<T>::bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&in, &out, &Wd, &part, &batch, &n};
   err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks), dim3(kThreads), args,
                                     bytes, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_cholesky(const T* K, T* L, T* Wd, T* part, int batch, int n, int blocks,
+                    cudaStream_t stream, unsigned long long* phase_ns) {
+  void* args[] = {&K, &L, &Wd, &part, &batch, &n, &phase_ns};
+  return launch<T>(panel_cholesky_kernel<T>, args, blocks, stream);
+}
+
+template <typename T>
+int launch_tri_inv_t(const T* L, T* Wt, T* Wd, T* part, int batch, int n, int blocks,
+                     cudaStream_t stream) {
+  void* args[] = {&L, &Wt, &Wd, &part, &batch, &n};
+  return launch<T>(panel_tri_inv_t_kernel<T>, args, blocks, stream);
 }
 
 }  // namespace
@@ -306,15 +474,19 @@ extern "C" int gpax_panel_grid(int kernel, int f64, int* blocks) {
 
 // K4. K: contiguous (batch, n, n) SPD, n a multiple of 128; L: zero-filled,
 // the same shape; Wd: (batch, 128, 128) scratch; part: blocks * 64 * 128
-// scratch. Writes the lower Cholesky factor of each K into L.
+// scratch. Writes the lower Cholesky factor of each K into L. phase_ns: null,
+// or 3 device integers that receive the nanoseconds spent in the products,
+// the diagonal step and the panel TRSM (PhaseClock).
 extern "C" int gpax_panel_cholesky_f32(const float* K, float* L, float* Wd, float* part,
-                                       int batch, int n, int blocks, cudaStream_t stream) {
-  return launch(panel_cholesky_kernel<float>, K, L, Wd, part, batch, n, blocks, stream);
+                                       int batch, int n, int blocks, cudaStream_t stream,
+                                       unsigned long long* phase_ns) {
+  return launch_cholesky(K, L, Wd, part, batch, n, blocks, stream, phase_ns);
 }
 
 extern "C" int gpax_panel_cholesky_f64(const double* K, double* L, double* Wd, double* part,
-                                       int batch, int n, int blocks, cudaStream_t stream) {
-  return launch(panel_cholesky_kernel<double>, K, L, Wd, part, batch, n, blocks, stream);
+                                       int batch, int n, int blocks, cudaStream_t stream,
+                                       unsigned long long* phase_ns) {
+  return launch_cholesky(K, L, Wd, part, batch, n, blocks, stream, phase_ns);
 }
 
 // K5. L: contiguous (batch, n, n) lower triangular, n a multiple of 128;
@@ -322,10 +494,10 @@ extern "C" int gpax_panel_cholesky_f64(const double* K, double* L, double* Wd, d
 // part as for K4. Writes W^T = L^-T (upper triangular) of each L into Wt.
 extern "C" int gpax_panel_tri_inv_t_f32(const float* L, float* Wt, float* Wd, float* part,
                                         int batch, int n, int blocks, cudaStream_t stream) {
-  return launch(panel_tri_inv_t_kernel<float>, L, Wt, Wd, part, batch, n, blocks, stream);
+  return launch_tri_inv_t(L, Wt, Wd, part, batch, n, blocks, stream);
 }
 
 extern "C" int gpax_panel_tri_inv_t_f64(const double* L, double* Wt, double* Wd, double* part,
                                         int batch, int n, int blocks, cudaStream_t stream) {
-  return launch(panel_tri_inv_t_kernel<double>, L, Wt, Wd, part, batch, n, blocks, stream);
+  return launch_tri_inv_t(L, Wt, Wd, part, batch, n, blocks, stream);
 }

@@ -29,9 +29,9 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gpax_torch_kernels"
 SOURCES = ("gram.cu", "trtri.cu", "cholinv.cu", "panel_chol.cu")
-# K2's substitution loop (shared with K3-K5) and K3's tile factorization
-# (shared with K4)
-HEADERS = ("tile_inv.cuh", "tile_chol.cuh")
+# K2's substitution loop (shared with K3 and K5), K3's tile factorization
+# and K4's blocked diagonal step
+HEADERS = ("tile_inv.cuh", "tile_chol.cuh", "tile_chol_blocked.cuh")
 # no --use_fast_math: K1's expf/sqrtf must be the accurate ones
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,8 +63,10 @@ def _declare(lib) -> None:
         entry.restype = i
     lib.gpax_panel_grid.argtypes = [i, i, ctypes.POINTER(i)]
     lib.gpax_panel_grid.restype = i
-    for entry in (lib.gpax_panel_cholesky_f32, lib.gpax_panel_cholesky_f64,
-                  lib.gpax_panel_tri_inv_t_f32, lib.gpax_panel_tri_inv_t_f64):
+    for entry in (lib.gpax_panel_cholesky_f32, lib.gpax_panel_cholesky_f64):
+        entry.argtypes = [p, p, p, p, i, i, i, p, p]  # ..., stream, phase_ns
+        entry.restype = i
+    for entry in (lib.gpax_panel_tri_inv_t_f32, lib.gpax_panel_tri_inv_t_f64):
         entry.argtypes = [p, p, p, p, i, i, i, p]
         entry.restype = i
 

@@ -18,7 +18,7 @@ into it: no model reaches them.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -65,10 +65,13 @@ def _blocks(kernel: int, A: torch.Tensor) -> int:
     return _grid[key]
 
 
-def _launch(kernel: int, A: torch.Tensor, wd_tiles: int) -> torch.Tensor:
+def _launch(kernel: int, A: torch.Tensor, wd_tiles: int,
+            phase_ns: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of K4 (kernel 0) or K5 (kernel 1) on A (B, n, n), n a
     multiple of TILE: a zero-filled output, and the scratch it needs (the
-    diagonal tiles' inverses, one partial-sum tile per block)."""
+    diagonal tiles' inverses, one partial-sum tile per block). ``phase_ns``
+    (K4 only): 3 int64 on A's device that receive the nanoseconds of K4's
+    phases."""
     global cholesky_launches, tri_inv_launches
     name = ("panel_cholesky", "panel_tri_inv_t")[kernel]
     if A.device.type != "cuda" or A.dtype not in _ENTRIES or A.ndim != 3 \
@@ -85,9 +88,11 @@ def _launch(kernel: int, A: torch.Tensor, wd_tiles: int) -> torch.Tensor:
     blocks = _blocks(kernel, A)
     Wd = A.new_empty((B * wd_tiles, TILE, TILE))
     part = A.new_empty((blocks, _PRODUCT_ROWS, TILE))
-    err = getattr(build.library(), _ENTRIES[A.dtype][kernel])(
-        A.data_ptr(), out.data_ptr(), Wd.data_ptr(), part.data_ptr(), B, n, blocks,
-        torch.cuda.current_stream(A.device).cuda_stream)
+    args = [A.data_ptr(), out.data_ptr(), Wd.data_ptr(), part.data_ptr(), B, n, blocks,
+            torch.cuda.current_stream(A.device).cuda_stream]
+    if kernel == 0:
+        args.append(None if phase_ns is None else phase_ns.data_ptr())
+    err = getattr(build.library(), _ENTRIES[A.dtype][kernel])(*args)
     build.check(err, name)
     if kernel == 0:
         cholesky_launches += 1
@@ -128,6 +133,21 @@ def panel_cholesky(K: torch.Tensor) -> torch.Tensor:
     factorization in one launch (``panel_chol.py:223-256``). NaN on
     indefinite input."""
     return _padded_call(panel_cholesky_padded, K)
+
+
+def cholesky_phase_ms(K: torch.Tensor) -> Tuple[float, float, float]:
+    """One K4 launch on K (…, n, n), as ``panel_cholesky`` makes it and
+    counted like any other, timed by phase on the device's clock: the ms
+    spent in the Schur-update products (split-K reduction included), in the
+    diagonal tiles' factorization and inversion, and in the panel TRSM, each
+    read by block 0 after the grid barrier that ends the phase. Raises on a
+    CPU tensor: only the kernel has phases."""
+    if K.device.type != "cuda":
+        raise RuntimeError("cholesky_phase_ms: the phases are the CUDA kernel's; "
+                           "K must be a CUDA tensor")
+    phase_ns = torch.zeros(3, dtype=torch.int64, device=K.device)
+    _padded_call(lambda A: _launch(0, A, 1, phase_ns), K)
+    return tuple(float(t) / 1e6 for t in phase_ns.tolist())
 
 
 def panel_tri_inv_t(L: torch.Tensor) -> torch.Tensor:

@@ -268,7 +268,7 @@ PANEL_TOL = {torch.float32: 1e-3, torch.float64: 1e-11}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,B", [(128, 1), (1000, 2), (2048, 1), (1024, 4)])
+@pytest.mark.parametrize("n,B", [(128, 1), (256, 1), (384, 3), (1000, 2), (2048, 1), (1024, 4)])
 def test_k4_k5_match_twins_and_factor(dev, dtype, n, B):
     K = _spd_batch(B, n, dev, dtype, seed=n + B)
     c4, c5 = panel_chol.cholesky_launches, panel_chol.tri_inv_launches
@@ -295,6 +295,37 @@ def test_k4_k5_propagate_nan_on_indefinite_input(dev, dtype):
     assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
     assert torch.isfinite(L[1, :128, :128]).all()  # the panels before the bad pivot
     assert not torch.isfinite(L[1, 200:, 200]).any() and not torch.isfinite(W[1, 200:, :200]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("q", [0, 15, 16, 31, 32, 127])
+def test_k4_nan_from_a_bad_pivot_at_a_sub_panel_border(dev, dtype, q):
+    """A bad pivot at local index q of the second tile: the columns before
+    it stay finite, every lower entry of the columns from it on is NaN."""
+    K = _spd_batch(1, 384, dev, dtype, seed=q)
+    p = panel_chol.TILE + q
+    K[0, p, p] = -1.0
+    L = panel_chol.panel_cholesky(K)[0]
+    assert torch.isfinite(L[:, :p]).all()
+    low = torch.ones_like(L[p:, p:], dtype=torch.bool).tril()
+    assert torch.isnan(L[p:, p:][low]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_phase_split(dev, dtype):
+    """Three non-negative phase sums, counted as a launch, whose total lies
+    within the CUDA-event time around the launch."""
+    K = _spd_batch(1, 1024, dev, dtype, seed=5)
+    panel_chol.cholesky_phase_ms(K)  # the build and the first launch
+    c4 = panel_chol.cholesky_launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    split = panel_chol.cholesky_phase_ms(K)
+    end.record()
+    torch.cuda.synchronize()
+    assert panel_chol.cholesky_launches == c4 + 1
+    assert len(split) == 3 and all(t >= 0 for t in split)
+    assert 0 < sum(split) <= start.elapsed_time(end)
 
 
 def test_k4_k5_reject_what_they_do_not_take(dev):

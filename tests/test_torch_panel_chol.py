@@ -101,3 +101,9 @@ def test_padding_is_identity():
     torch.testing.assert_close(Lp[0, :200, :200], panel_chol.panel_cholesky(K),
                                rtol=0, atol=0)
     torch.testing.assert_close(Lp[0, 200:, 200:], torch.eye(56), rtol=0, atol=0)
+
+
+def test_cholesky_phase_ms_raises_on_a_cpu_tensor():
+    """Only the CUDA kernel has phases: no twin stands in for it."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        panel_chol.cholesky_phase_ms(torch.tensor(spd(128)))
