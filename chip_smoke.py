@@ -16,13 +16,18 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    on it against the twin, in float64 (the factor path's dtype) and float32,
    at n ∈ {4096, 8192} and a batch of 8 at n = 1024, and times K2, the twin
    and ``torch.linalg.solve_triangular`` (on the whole factor, and on the
-   diagonal tiles alone: K2's library yardstick);
+   diagonal tiles alone: K2's library yardstick); then checks, in both
+   dtypes, that a zero pivot at each sub-panel border of a tile leaves every
+   entry of that tile's rows from the pivot on non-finite and the rest
+   finite;
 5. holds kernel K3 (128-tile Cholesky and inverse) against its twin on each
    leaf of ``chol_inv``, and ``chol_inv`` against ``cholesky_ex`` +
    ``solve_triangular(L, I)``, in float32 and float64 at m ∈ {128, 1024}
    and a batch of 8 at m = 1024, on two ill-conditioned RBF tiles (κ ~ 1e6,
-   the sparse GP's first leaf) in both dtypes, with an indefinite tile that
-   must come back NaN, and times K3, the twin and that library pair;
+   the sparse GP's first leaf) in both dtypes, and a bad pivot at each
+   sub-panel border of a tile in both dtypes (L NaN from its column on, W
+   non-finite from its row on), and
+   times K3, the twin and that library pair;
 6. holds kernels K4 (single-launch panel Cholesky) and K5 (single-launch
    panel triangular inverse) against their twins in float32 and float64 at
    n = 8192, a ragged n = 4000 (identity padding), a batch of 4 at n = 1024
@@ -121,6 +126,9 @@ CHOL_INV_RESID_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
 # whatever κ (see panel_compare)
 PANEL_REL_FLOOR = {torch.float32: 1e-4, torch.float64: 1e-12}
 PANEL_CASES = ((8192, 1), (4000, 1), (1024, 4))  # (n, batch); the first is timed
+# local indices of a bad pivot in a tile for K2 and K3: borders of the
+# blocked routine's 16-column sub-panels, a row inside one, the last row
+TILE_NAN_PIVOTS = (15, 16, 60, 63, 64, 127)
 # local indices of a bad pivot in a tile: its ends and K4's sub-panel borders
 PANEL_NAN_PIVOTS = (0, 15, 16, 31, 32, 127)
 # likelihood+grad sizes of the fused/composed crossover
@@ -353,6 +361,7 @@ def check_k2(dev) -> dict:
             t_solve = cuda_ms(lambda: torch.linalg.solve_triangular(L, eye, upper=False), iters)
             t_k2, t_k2_twin = paired_ms(lambda: chol.tile_tri_inv(L),
                                         lambda: chol.tile_tri_inv_twin(L), iters)
+            t_fill = cuda_ms(lambda: torch.zeros_like(L), iters)  # the wrapper's W
             # the library call on the diagonal tiles alone, gathered beforehand
             T = n // chol.TILE
             tiles = L.view(B, T, chol.TILE, T, chol.TILE).diagonal(dim1=1, dim2=3)
@@ -363,15 +372,40 @@ def check_k2(dev) -> dict:
             # wrapper's zero fill of the rest of W is not the function's
             # work); 128³/3 flops per tile
             b = bound(2 * B * T * chol.TILE**2 * L.element_size(), B * T * chol.TILE**3 / 3, dtype)
-            print(f"K2 time {name} n={n} B={B}: tiles K2 {t_k2:.4f} ms, tiles twin "
+            print(f"K2 time {name} n={n} B={B}: tiles K2 {t_k2:.4f} ms (W's zero fill alone "
+                  f"{t_fill:.4f}), tiles twin "
                   f"{t_k2_twin:.4f} ms, tiles solve_triangular {t_lib:.4f} ms, bound "
                   f"{b['bound_ms']:.5f} ms ({b['bound_by']}) | blocked_trtri K2 {t_blk:.4f} ms, "
                   f"twin {t_twin:.4f} ms, solve_triangular(L, I) {t_solve:.4f} ms", flush=True)
             if (dtype, n, B) == (torch.float64, 4096, 1):
-                timing = {"ms": t_k2, "plain_ms": t_k2_twin, "library_ms": t_lib, **b}
+                timing = {"ms": t_k2, "plain_ms": t_k2_twin, "library_ms": t_lib, **b,
+                          "zero_fill_ms": t_fill}
             del L, W, eye, tiles, eye_t
             torch.cuda.empty_cache()
+    check_k2_nan(dev)
     return {"max_abs_err": worst, **timing}
+
+
+def check_k2_nan(dev) -> None:
+    """K2 with a zero pivot at local row p of the second of three tiles, for
+    each p of TILE_NAN_PIVOTS, in both dtypes: as the Pallas kernel's row
+    recurrence gives it, every entry of that tile's rows from p on is
+    non-finite, and its rows above p and the other tiles are finite."""
+    T = chol.TILE
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for p in TILE_NAN_PIVOTS:
+            L = _spd_factor(3 * T, 1, p, dev, dtype)
+            L[0, T + p, T + p] = 0.0
+            W = chol.tile_tri_inv(L)[0]
+            tiles = [W[T * t:T * (t + 1), T * t:T * (t + 1)] for t in range(3)]
+            ok = (bool(torch.isfinite(tiles[0]).all()) and bool(torch.isfinite(tiles[2]).all())
+                  and bool(torch.isfinite(tiles[1][:p]).all())
+                  and not bool(torch.isfinite(tiles[1][p:]).any()))
+            print(f"K2 {name} zero pivot at local row {p} of tile 1: finite above it, non-finite "
+                  f"rows from it on: {ok}", flush=True)
+            if not ok:
+                fail(f"K2 does not propagate a zero pivot at local row {p} ({name})")
 
 
 def _spd(n: int, B: int, seed: int, dev, dtype) -> torch.Tensor:
@@ -424,7 +458,8 @@ def k3_compare(label: str, A: torch.Tensor) -> float:
     where that is larger: each side is within the first-order error bound
     n·eps·κ(L) of a Cholesky factorization and a triangular inversion, which
     an ill-conditioned leaf of a real Kuu reaches, and the two round
-    differently (rsqrt and FMA chains against cuSOLVER and cuBLAS)."""
+    differently (products with 1/L_ii and blocked DMMA or FMA sums against
+    cuSOLVER and cuBLAS)."""
     L, W = chol.tile_chol_inv(A)
     Lt, Wt = chol.tile_chol_inv_twin(A)
     kappa = (torch.linalg.matrix_norm(Lt, ord=2) * torch.linalg.matrix_norm(Wt, ord=2)).max().item()
@@ -446,10 +481,10 @@ def check_k3(dev) -> dict:
     m ∈ {128, 1024} and a batch of 8 at m = 1024, on A·Aᵀ/m + ½I (κ ≤ ~9;
     tolerances CHOL_INV_TOL relative to max|L| and max|W| and
     CHOL_INV_RESID_TOL on ‖W·L − I‖ and ‖L·Lᵀ − K‖/max|K|: the recursion's
-    GEMMs add rounding of order m·eps·κ to the leaves'). Then an indefinite
-    tile, which must come back NaN. Times K3, its twin and the library pair
-    on the leaves, and chol_inv, its twin recursion and the library pair on
-    the whole matrix."""
+    GEMMs add rounding of order m·eps·κ to the leaves'). Then indefinite
+    tiles, which must come back NaN (check_k3_nan). Times K3, its twin and
+    the library pair on the leaves, and chol_inv, its twin recursion and the
+    library pair on the whole matrix."""
     worst = 0.0
     timing = {}
     for dtype in (torch.float32, torch.float64):
@@ -512,15 +547,33 @@ def check_k3(dev) -> dict:
             name = str(dtype).replace("torch.", "")
             k3_compare(f"{name} RBF tile spacing {spacing} l={ls} k_scale={ks} jitter(m={m})",
                        K.to(dtype)[None].contiguous())
-    A = _spd(chol.TILE, 2, 3, dev, torch.float32)
-    A[1, 60, 60] = -1.0
-    L, W = chol.tile_chol_inv(A)
-    nan_ok = (bool(torch.isfinite(L[0]).all()) and bool(torch.isfinite(W[0]).all())
-              and bool(torch.isnan(L[1, 60:, 60]).all()) and not bool(torch.isfinite(W[1, 60:]).any()))
-    print(f"K3 indefinite tile: NaN from the failing pivot on: {nan_ok}", flush=True)
-    if not nan_ok:
-        fail("K3 does not propagate NaN from an indefinite pivot")
+    check_k3_nan(dev)
     return {"max_abs_err": worst, **timing}
+
+
+def check_k3_nan(dev) -> None:
+    """K3 on one batch of a good tile and a tile for each p of
+    TILE_NAN_PIVOTS with a bad pivot at row p, in both dtypes: the good tile
+    finite; L zero above the diagonal, finite before column p and NaN in
+    every lower entry from p on; W non-finite in every entry of its rows from
+    p on (above the diagonal too) and finite above p."""
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        A = _spd(chol.TILE, len(TILE_NAN_PIVOTS) + 1, 9, dev, dtype)
+        for b, p in enumerate(TILE_NAN_PIVOTS, 1):
+            A[b, p, p] = -1.0
+        L, W = chol.tile_chol_inv(A)
+        if not (bool(torch.isfinite(L[0]).all()) and bool(torch.isfinite(W[0]).all())):
+            fail(f"K3 ({name}): the good tile of a batch with bad ones is not finite")
+        for b, p in enumerate(TILE_NAN_PIVOTS, 1):
+            ok = (torch.count_nonzero(torch.triu(L[b], 1)).item() == 0
+                  and panel_nan_from(L[b], p)
+                  and bool(torch.isfinite(W[b, :p]).all())
+                  and not bool(torch.isfinite(W[b, p:]).any()))
+            print(f"K3 {name} bad pivot at row {p}: L finite before it and NaN from it on, W "
+                  f"finite above it and non-finite rows from it on: {ok}", flush=True)
+            if not ok:
+                fail(f"K3 does not propagate NaN from a bad pivot at row {p} ({name})")
 
 
 def panel_compare(label: str, K: torch.Tensor):

@@ -9,80 +9,69 @@
 // makes ceil(m / 128) launches in order; one launch covers the current leaf
 // of every matrix of a batch (grid = batch, one block per matrix).
 //
-// Per block, the tile of A sits in dynamic shared memory and is overwritten
-// by L in its lower triangle:
-//   1. the right-looking Cholesky of tile_chol.cuh (shared with K4's
-//      diagonal tiles), 256 threads;
-//   2. the forward substitution for W of tile_inv.cuh, K2's loop, one column
-//      per thread of the first 128.
-// In float32 W's tile sits in shared memory beside A's (2 x 64 KB); in
-// float64 the two would take 256 KB, more than an SM's 227 KB, so A's tile
-// (128 KB) stays in shared memory and each thread keeps its column of W in
-// the output itself, in global memory, as K2 does.
+// Per block of 256 threads, the tile sits in dynamic shared memory, swizzled
+// (tile_at), and the blocked routine of tile_chol_blocked.cuh (K4's diagonal
+// step) factors it and inverts the factor there: L in the lower triangle,
+// W^T in the strict upper one, 1/L_ii beside it. Then L (zero above the
+// diagonal) and W are stored row-major. The float64 tile, the pivots and the
+// row poisons take 130 KB, one block an SM; float32 65 KB.
 //
-// What bounds it on an H100: latency, not bytes or FLOPs. A tile is 2 * 128
-// dependent steps: 128 factorization steps with two barriers each, and 128
-// substitution rows whose dot products grow to 127 terms, all on one SM per
-// matrix. It moves 3 * 64 KB (float32) per matrix and does ~1.4 MFLOP. The
-// design keeps every step in shared memory (no device-memory round trip
-// between steps, which the TPU kernel's VMEM also avoided), spreads each
-// trailing update over 8 warps, two per scheduler, and relies on the batch
-// (one block per matrix) to fill more than one SM. At one matrix it uses one
-// of 132 SMs.
+// What bounds it on an H100: latency, not bytes or FLOPs. A tile moves
+// 3 x 128 KB (float64) and does ~1.4 MFLOP, 0.12 us at the HBM rate, but
+// its 128 pivots are one dependent chain of square roots and divisions, all
+// on one SM per matrix. The routine takes 3 block barriers per 16-column
+// sub-panel where the unblocked right-looking loop took 2 per column, factors
+// each 16-column diagonal block in one warp's registers by shuffles, and runs
+// the block products of the trailing update and of the inverse on the tensor
+// cores in float64 (mma.sync m8n8k4) and as register-tiled FMAs in float32.
+// At one matrix it uses one of 132 SMs; the batch fills more.
 //
 // The pivot's scale is the IEEE square root and division, and nothing is
-// clamped: a bad pivot's NaN reaches L and W (tile_chol.cuh says why both).
-// The caller's jitter escalation (safe_chol_inv) relies on that.
+// clamped: a bad pivot at row p gives NaN in L's columns from p on, finite
+// columns before it, and non-finite entries in every column of W's rows
+// from p on, as the Pallas kernel's row recurrence does (above the diagonal
+// through the row poison, row_poison). The caller's jitter escalation
+// (safe_chol_inv) relies on that.
 
 #include <cuda_runtime.h>
 
-#include "tile_chol.cuh"
+#include "tile_chol_blocked.cuh"
 
 namespace {
 
 constexpr int kT = gpax::kTile;
-constexpr int kThreads = gpax::kCholThreads;
-
-template <typename T>
-struct CholTiles {
-  static constexpr bool w_in_smem = sizeof(T) == 4;  // W's tile beside A's
-  // A's tile, the column vector l, and (float32) W's tile
-  static constexpr int smem_bytes = ((w_in_smem ? 2 : 1) * kT * kT + kT) * (int)sizeof(T);
-};
+constexpr int kThreads = gpax::kBlockedThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 tile_chol_inv_kernel(const T* __restrict__ A, T* __restrict__ L, T* __restrict__ W) {
+  using Smem = gpax::TileSmem<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* As = reinterpret_cast<T*>(smem);  // [kT][kT] row-major; L in its lower triangle
-  T* lv = As + kT * kT;                // column j of L during step j
+  T* As = reinterpret_cast<T*>(smem);
+  T* inv = As + Smem::inv;
+  T* z = As + Smem::poison;
   const int tid = threadIdx.x;
-  const int c = tid % kT, g = tid / kT;  // column, row group
   const size_t base = (size_t)blockIdx.x * kT * kT;
 
-  for (int e = tid; e < kT * kT; e += kThreads) As[e] = A[base + e];
+  for (int e = tid; e < kT * kT; e += kThreads) As[gpax::tile_at<T>(e / kT, e % kT)] = A[base + e];
   __syncthreads();
-
-  gpax::tile_cholesky(As, lv);
-
-  for (int e = tid; e < kT * kT; e += kThreads)
-    L[base + e] = (e % kT) <= (e / kT) ? As[e] : T(0);
-  if (g == 0) {
-    // each thread reads back only the column it wrote: no barrier needed
-    T* Wt = CholTiles<T>::w_in_smem ? lv + kT : W + base;
-    gpax::tile_forward_subst(As, Wt, kT, c);
-    if (CholTiles<T>::w_in_smem)
-      for (int i = 0; i < kT; ++i) W[base + i * kT + c] = Wt[i * kT + c];
+  gpax::tile_chol_blocked(As, inv);
+  if (tid < 32) gpax::row_poison((const T*)inv, z, tid);
+  gpax::tile_inv_blocked(As, (const T*)inv);
+  for (int e = tid; e < kT * kT; e += kThreads) {
+    const int r = e / kT, c = e % kT;
+    L[base + e] = c <= r ? As[gpax::tile_at<T>(r, c)] : T(0);
+    W[base + e] = gpax::inverse_entry((const T*)As, (const T*)inv, (const T*)z, r, c);
   }
 }
 
 template <typename T>
 int launch(const T* A, T* L, T* W, int batch, cudaStream_t stream) {
+  constexpr int bytes = gpax::TileSmem<T>::bytes;
   cudaError_t err = cudaFuncSetAttribute(tile_chol_inv_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         CholTiles<T>::smem_bytes);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  tile_chol_inv_kernel<T><<<batch, kThreads, CholTiles<T>::smem_bytes, stream>>>(A, L, W);
+  tile_chol_inv_kernel<T><<<batch, kThreads, bytes, stream>>>(A, L, W);
   return (int)cudaGetLastError();
 }
 

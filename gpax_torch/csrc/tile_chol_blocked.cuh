@@ -1,9 +1,11 @@
-// K4's diagonal step (panel_chol.cu): the Cholesky factor L_D of one
-// 128 x 128 SPD tile and its inverse W_D, blocked, in the shared memory of
-// one block of 256 threads. It computes what the TPU kernel's
-// _chol_tile_value / _tri_inv_tile_value (scripts/panel_chol.py) compute,
-// with 3 block barriers per 16-column sub-panel where K3's loop
-// (tile_chol.cuh) takes 2 per column, and 3 per block row of the inverse.
+// The blocked 128 x 128 tile routine of K3 (cholinv.cu), K2 (trtri.cu) and
+// K4's diagonal step (panel_chol.cu), in the shared memory of one block of
+// 256 threads: tile_chol_blocked factors one SPD tile (L), tile_inv_blocked
+// inverts a lower-triangular one (W = L^-1), tile_chol_inv_blocked does
+// both. They compute what the TPU kernels' row recurrences
+// (gpax_tpu/ops/chol.py, scripts/panel_chol.py) compute, with 3 block
+// barriers per 16-column sub-panel of the factorization, where an unblocked
+// right-looking loop takes 2 per column, and 3 per block row of the inverse.
 //
 // Factorization, right-looking over the 8 sub-panels of 16 columns:
 //   (a) warp 0 factors the sub-panel's 16 x 16 diagonal block in registers,
@@ -17,7 +19,7 @@
 // Inverse, in 16 x 16 blocks:
 //   (d) warp w inverts diagonal block w (lane c owns column c of W_ww);
 //   (e) right-looking over block rows K = 0..6: T_IJ += L_IK W_KJ for every
-//       I > K, J <= K, once block row K of W_D is final; then block row
+//       I > K, J <= K, once block row K of W is final; then block row
 //       K + 1 becomes final, W_{K+1,J} = -W_{K+1,K+1} T_{K+1,J}. T_IJ is
 //       kept in W_IJ's own slot.
 // The block products of (c) and (e) run on the tensor cores in float64
@@ -25,18 +27,18 @@
 // in float32 (16 threads per block).
 //
 // Layout, in the tile buffer alone (the float64 tile and the pivot vector
-// fill K4's 132 KB): L_D in the lower triangle, W_D^T in the strict upper
-// triangle (W_D[i][j], i > j, at (j, i)), 1/L_ii = W_D[i][i] in the vector.
+// fill K4's 132 KB): L in the lower triangle, W^T in the strict upper
+// triangle (W[i][j], i > j, at (j, i)), 1/L_ii = W[i][i] in the vector.
 // The tile is stored with the column XOR-ed with the row's low bits
 // (swizzled), so that a warp reading a row or a column of it hits distinct
 // banks; every access goes through tile_at.
 //
-// The rules of tile_chol.cuh hold: each pivot's scale is the IEEE square
-// root and division (not rsqrt), and nothing is clamped, so a bad pivot
-// gives NaN in its column and, through (b)-(c) and the inverse, in every
-// later one, while the columns before it stay finite. The divisions by
-// L_cc of (b) and (d) are products with 1 / L_cc, itself an IEEE division,
-// as the TPU kernel's products with W_D stand for the panel's.
+// Each pivot's scale is the IEEE square root and division (not rsqrt), and
+// nothing is clamped, so a bad pivot gives NaN in its column and, through
+// (b)-(c) and the inverse, in every later one, while the columns before it
+// stay finite. The divisions by L_cc of (b) and (d) are products with
+// 1 / L_cc, itself an IEEE division, as the TPU kernel's products with W_D
+// stand for the panel's.
 
 #pragma once
 
@@ -46,7 +48,7 @@ namespace gpax {
 
 constexpr int kSub = 16;                 // sub-panel width
 constexpr int kSubs = kTile / kSub;      // sub-panels of a tile
-constexpr int kBlockedThreads = 256;     // the block size tile_chol_inv_blocked expects
+constexpr int kBlockedThreads = 256;     // the block size the routine expects
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float ieee_sqrt(float x) { return sqrtf(x); }
@@ -397,11 +399,12 @@ struct RowOut<double> {
   double v[2][2][2];
 };
 
-// As: the swizzled tile (tile_at), loaded, with a barrier passed since;
-// inv: kTile elements of shared scratch. On return L_D, W_D^T and 1/L_ii
-// are laid out as above and every thread has passed a barrier.
+// (a)-(c). As: the swizzled tile (tile_at), loaded, with a barrier passed
+// since; inv: kTile elements of shared scratch. On return L sits in the
+// lower triangle of As, 1/L_ii in inv, and every thread has passed a
+// barrier. The strict upper triangle keeps the input's values.
 template <typename T>
-__device__ void tile_chol_inv_blocked(T* As, T* inv) {
+__device__ void tile_chol_blocked(T* As, T* inv) {
   const int tid = threadIdx.x;
   for (int j0 = 0; j0 < kTile; j0 += kSub) {
     if (tid < 32) factor_diagonal_block(As, inv, j0, tid);
@@ -411,17 +414,74 @@ __device__ void tile_chol_inv_blocked(T* As, T* inv) {
     trailing_update(As, j0, tid);
     __syncthreads();
   }
-  invert_diagonal_block(As, (const T*)inv, tid / 32, tid % 32);
+}
+
+// (d)-(e). As: L in the lower triangle of the swizzled tile (the strict
+// upper triangle may hold anything: no value read from it is used before
+// the routine writes it), inv: 1/L_ii, both with a barrier passed since. On return W^T sits in the strict upper
+// triangle (W's diagonal is inv) and every thread has passed a barrier.
+template <typename T>
+__device__ void tile_inv_blocked(T* As, const T* inv) {
+  const int tid = threadIdx.x;
+  invert_diagonal_block(As, inv, tid / 32, tid % 32);
   __syncthreads();
   for (int K = 0; K < kSubs - 1; ++K) {
-    inverse_update(As, (const T*)inv, K, tid);
+    inverse_update(As, inv, K, tid);
     __syncthreads();
     RowOut<T> out;
-    const bool mine = inverse_row((const T*)As, (const T*)inv, K, tid, out.v);
+    const bool mine = inverse_row((const T*)As, inv, K, tid, out.v);
     __syncthreads();
     if (mine) store_inverse_row(As, K, tid, out.v);
     __syncthreads();
   }
+}
+
+// L and W = L^-1 of one SPD tile (tile_chol_blocked, then tile_inv_blocked)
+template <typename T>
+__device__ void tile_chol_inv_blocked(T* As, T* inv) {
+  tile_chol_blocked(As, inv);
+  tile_inv_blocked(As, (const T*)inv);
+}
+
+// The shared memory of K2's and K3's blocks: the swizzled tile, 1/L_ii and
+// each row's poison (row_poison), kTile elements each after the tile.
+template <typename T>
+struct TileSmem {
+  static constexpr int inv = kTile * kTile, poison = inv + kTile;
+  static constexpr int bytes = (poison + kTile) * (int)sizeof(T);
+};
+
+// Warp 0 (call with all 32 lanes) writes z[r] = sum_{k <= r} 0 * inv[k]:
+// 0 while every pivot up to row r is finite and nonzero, NaN from the first
+// bad one on. Added to every entry of W's row r, it gives the TPU kernel's
+// rows of the inverse (row r = (e_r - acc) / l_rr over whole rows): non-finite
+// in every column from a bad pivot's row down, where the blocked inverse
+// leaves finite the entries above the diagonal and those that do not depend
+// on the bad row.
+template <typename T>
+__device__ __forceinline__ void row_poison(const T* inv, T* z, int lane) {
+  T v[4], s = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s += T(0) * inv[4 * lane + i];
+    v[i] = s;
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const T t = __shfl_up_sync(kFullWarp, s, o);
+    if (lane >= o) s += t;
+  }
+  T before = __shfl_up_sync(kFullWarp, s, 1);
+  if (lane == 0) before = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) z[4 * lane + i] = before + v[i];
+}
+
+// W[r][c] of the tile that tile_inv_blocked leaves in As and inv, plus the
+// row's poison z[r] (row_poison)
+template <typename T>
+__device__ __forceinline__ T inverse_entry(const T* As, const T* inv, const T* z, int r, int c) {
+  return (c < r ? As[tile_at<T>(c, r)] : (c == r ? inv[r] : T(0))) + z[r];
 }
 
 }  // namespace gpax

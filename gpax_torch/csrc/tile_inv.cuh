@@ -1,5 +1,7 @@
-// The forward substitution shared by K2 (trtri.cu) and K3 (cholinv.cu):
-// the inverse of one 128 x 128 lower-triangular tile, one column per thread.
+// The forward substitution of K5's diagonal tiles (panel_chol.cu): the
+// inverse of one 128 x 128 lower-triangular tile, one column per thread.
+// Also the tile size and the fma_ overloads that the blocked routine
+// (tile_chol_blocked.cuh) builds on.
 //
 // Thread j (0 <= j < 128) owns column j of W = L^-1 and runs
 //

@@ -9,74 +9,72 @@
 // parallel. The off-diagonal combination W21 = -W22 (L21 W11) stays in
 // torch.matmul, as the JAX package leaves it to XLA.
 //
-// Layout: 128 threads per block, thread j owns column j of the tile's
-// inverse and runs the forward substitution of tile_inv.cuh (shared with
-// K3), the Pallas kernel's row recurrence read column by column. L's
-// tile sits in dynamic shared memory. In float32 W's tile sits there too
-// (2 x 64 KB). In float64 the two tiles would take 256 KB, more than an SM's
-// 227 KB, so L's tile (128 KB) stays in shared memory and each thread keeps
-// its column of W in the output itself, in global memory: the thread reads
-// back only what it wrote, through L1, and a warp's loads of one row are
-// coalesced.
+// Per block of 256 threads: the lower triangle of L's tile is loaded into
+// dynamic shared memory, swizzled (tile_at); 1/L_ii is an IEEE division;
+// the inverse half of the blocked routine of tile_chol_blocked.cuh
+// (tile_inv_blocked, shared with K3 and K4's diagonal step) builds W^T in
+// the tile's strict upper triangle, in 16 x 16 blocks; W's tile is stored
+// row-major at row stride n. The float64 tile, the pivots and the row
+// poisons take 130 KB, one block an SM; float32 65 KB.
 //
-// What bounds it on an H100: a thread does 128^2 / 2 FMAs per tile, and a
-// block of 4 warps gives each scheduler one warp, which issues each term's
-// address arithmetic, loads and FMA at their full latencies: the wrapper
-// takes 0.099 ms in float32 and 0.219 ms in float64 for the 32 tiles of
-// n = 4096, W's zero fill included, at most 21 and 46 cycles per term.
-// Splitting the sum into four chains did not change that; more warps per
-// column might. It moves only a few hundred KB, so it
-// is not bandwidth-bound. With one block per tile, n = 4096 fills 32 of
-// the 132 SMs;
-// the design relies on the batch of posterior draws in predict to fill the
-// rest, and on the recursion's GEMMs, which are n^3 / 3 flops against the
-// leaves' n * 128^2 / 2, to dominate the inverse's time.
+// What bounds it on an H100: latency, not bytes or FLOPs. The 32 tiles of
+// n = 4096 in float64 move 8.4 MB (2.5 us at the HBM rate) and do 22 MFLOP.
+// A tile's inverse is 8 dependent block rows; the routine inverts the 8
+// diagonal blocks in 8 warps at once, then takes 3 block barriers per block
+// row, with the block products on the tensor cores in float64 (mma.sync
+// m8n8k4) and as register-tiled FMAs in float32, where a per-column forward
+// substitution ran a chain of up to 127 dependent FMAs on one thread. With
+// one block per tile, n = 4096 fills 32 of the 132 SMs; the batch of
+// posterior draws in predict fills the rest.
 //
-// A zero or NaN pivot propagates inf/NaN, as in the Pallas kernel: nothing
-// is clamped. The caller's jitter escalation decides what to do with it.
+// A zero or NaN pivot at row p gives non-finite values in every column of
+// W's rows from p on and finite values above p and in every other tile, as
+// the Pallas kernel's row recurrence does: the row poison (row_poison) is
+// added to each row as it is stored. Nothing is clamped; the caller's jitter
+// escalation decides what to do with it.
 
 #include <cuda_runtime.h>
 
-#include "tile_inv.cuh"
+#include "tile_chol_blocked.cuh"
 
 namespace {
 
 constexpr int kT = gpax::kTile;
+constexpr int kThreads = gpax::kBlockedThreads;
 
 template <typename T>
-struct Tiles {
-  static constexpr bool w_in_smem = sizeof(T) == 4;  // W's tile beside L's
-  static constexpr int smem_bytes = (w_in_smem ? 2 : 1) * kT * kT * (int)sizeof(T);
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kT)
+__global__ void __launch_bounds__(kThreads)
 tile_tri_inv_kernel(const T* __restrict__ L, T* __restrict__ W, int n) {
+  using Smem = gpax::TileSmem<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Ls = reinterpret_cast<T*>(smem);  // [kT][kT], row-major tile of L
+  T* As = reinterpret_cast<T*>(smem);
+  T* inv = As + Smem::inv;
+  T* z = As + Smem::poison;
+  const int tid = threadIdx.x;
+  const size_t base = (size_t)blockIdx.y * n * n + (size_t)blockIdx.x * kT * (n + 1);
 
-  const int t = blockIdx.x, b = blockIdx.y, j = threadIdx.x;
-  const size_t base = (size_t)b * n * n + (size_t)t * kT * n + (size_t)t * kT;
-  // row-major tile of W: in shared memory (stride kT) or in place (stride n)
-  T* Wt = Tiles<T>::w_in_smem ? Ls + kT * kT : W + base;
-  const size_t ldw = Tiles<T>::w_in_smem ? kT : n;
-
-  for (int i = 0; i < kT; ++i) Ls[i * kT + j] = L[base + (size_t)i * n + j];
+  for (int e = tid; e < kT * kT; e += kThreads) {
+    const int r = e / kT, c = e % kT;
+    if (c <= r) As[gpax::tile_at<T>(r, c)] = L[base + (size_t)r * n + c];
+  }
+  if (tid < kT) inv[tid] = T(1) / L[base + (size_t)tid * (n + 1)];
   __syncthreads();
-
-  gpax::tile_forward_subst(Ls, Wt, ldw, j);
-  // each thread reads back only the column it wrote: no barrier needed
-  if (Tiles<T>::w_in_smem)
-    for (int i = 0; i < kT; ++i) W[base + (size_t)i * n + j] = Wt[i * kT + j];
+  if (tid < 32) gpax::row_poison((const T*)inv, z, tid);
+  gpax::tile_inv_blocked(As, (const T*)inv);
+  for (int e = tid; e < kT * kT; e += kThreads) {
+    const int r = e / kT, c = e % kT;
+    W[base + (size_t)r * n + c] = gpax::inverse_entry((const T*)As, (const T*)inv, (const T*)z, r, c);
+  }
 }
 
 template <typename T>
 int launch(const T* L, T* W, int batch, int n, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_tri_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, Tiles<T>::smem_bytes);
+  constexpr int bytes = gpax::TileSmem<T>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(tile_tri_inv_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n / kT, batch);
-  tile_tri_inv_kernel<T><<<grid, kT, Tiles<T>::smem_bytes, stream>>>(L, W, n);
+  tile_tri_inv_kernel<T><<<grid, kThreads, bytes, stream>>>(L, W, n);
   return (int)cudaGetLastError();
 }
 

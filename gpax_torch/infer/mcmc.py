@@ -2,15 +2,18 @@
 ``MCMC(NUTS(model), num_warmup, num_samples).run(key, *args)`` then
 ``get_samples()``. Chains run one after another on the data's device.
 
-The JAX package's segmented runner, its deadline and warmup-depth-cap
-options, and its vectorized and parallel chain methods belong to later
-slices; asking for them raises ``NotImplementedError`` instead of being
-silently ignored.
+The JAX package's segmented runner (``segment_size``) and its vectorized
+and parallel chain methods belong to later slices; asking for them raises
+``NotImplementedError``. Its ``segment_callback``, ``deadline`` and
+``warmup_depth_cap`` options only act on the segmented runner: on this
+non-segmented run they are ignored with a ``UserWarning``, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, Optional
 
 import torch
@@ -54,9 +57,12 @@ class MCMC:
         self._stats: Optional[Dict[str, torch.Tensor]] = None
 
     def run(self, rng_key, *model_args, extra_fields=(), init_params=None, **model_kwargs):
-        for name in ("segment_callback", "deadline", "warmup_depth_cap"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(f"{name}: the segmented runner is not ported")
+        ignored = [n for n in ("segment_callback", "deadline", "warmup_depth_cap")
+                   if getattr(self, n) is not None]
+        if ignored:
+            warnings.warn(
+                f"{', '.join(ignored)} require segment_size (the segmented "
+                "runner paths); ignored on this non-segmented run", stacklevel=2)
         if isinstance(rng_key, int):
             rng_key = torch.Generator().manual_seed(rng_key)
         model = self.kernel.model

@@ -209,9 +209,11 @@ class ExactGP:
         ``pad_to_multiple`` pads the training set to the next multiple with
         rows far outside the data and a large masked noise, so an
         active-learning loop sees few distinct sizes; prediction uses the
-        unpadded data. ``segment_size``, ``segment_callback``, ``deadline``
-        and ``warmup_depth_cap`` belong to the segmented runner, which is not
-        ported: they raise ``NotImplementedError``.
+        unpadded data. ``segment_size`` asks for the segmented runner, which
+        is not ported: it raises ``NotImplementedError``. ``segment_callback``,
+        ``deadline`` and ``warmup_depth_cap`` act only on that runner; without
+        ``segment_size`` they are ignored with a ``UserWarning``, as in the
+        JAX package.
         """
         X, y = self._set_data(X, y, device)
         self.X_train, self.y_train = X, y

@@ -29,9 +29,9 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gpax_torch_kernels"
 SOURCES = ("gram.cu", "trtri.cu", "cholinv.cu", "panel_chol.cu")
-# K2's substitution loop (shared with K3 and K5), K3's tile factorization
-# and K4's blocked diagonal step
-HEADERS = ("tile_inv.cuh", "tile_chol.cuh", "tile_chol_blocked.cuh")
+# K5's substitution loop, and the blocked 128-tile routine of K2, K3 and
+# K4's diagonal step
+HEADERS = ("tile_inv.cuh", "tile_chol_blocked.cuh")
 # no --use_fast_math: K1's expf/sqrtf must be the accurate ones
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,7 +1,8 @@
-// K4's blocked diagonal step (gpax_torch/csrc/tile_chol_blocked.cuh) on one
-// 128 x 128 SPD tile in one block, timed by part with clock64 (thread 0
-// reads the clock after each block barrier), beside the unblocked step
-// that K3 runs (tile_cholesky + tile_forward_subst) timed by CUDA events.
+// The blocked 128-tile routine of K2, K3 and K4's diagonal step
+// (gpax_torch/csrc/tile_chol_blocked.cuh) on one 128 x 128 SPD tile in one
+// block, timed by part with clock64 (thread 0 reads the clock after each
+// block barrier), beside the unblocked step that K3 ran before it
+// (unblocked_cholesky below + tile_forward_subst) timed by CUDA events.
 // Prints, for float64 and float32, the microseconds a tile of each, the
 // residuals |L L^T - K| and |W L - I| of the blocked step, and its cycles a
 // tile by part. Build and run on a card, from the repository root:
@@ -13,10 +14,35 @@
 #include <random>
 #include <vector>
 
-#include "../gpax_torch/csrc/tile_chol.cuh"
 #include "../gpax_torch/csrc/tile_chol_blocked.cuh"
 
 using namespace gpax;
+
+// The unblocked right-looking Cholesky of one tile in shared memory, the
+// baseline: at step j, l_i = A[i][j] / sqrt(A[j][j]) for i >= j (the 128
+// threads of the first half, one row each, into lv), then A[i][k] -= l_i l_k
+// for j < k <= i, the 256 threads taking one column and every second row
+// each; two block barriers a column. L ends in the lower triangle of As.
+template <typename T>
+__device__ __forceinline__ void unblocked_cholesky(T* As, T* lv) {
+  const int tid = threadIdx.x;
+  const int c = tid % kTile, g = tid / kTile;  // column, row group
+  for (int j = 0; j < kTile; ++j) {
+    T v = 0;
+    if (g == 0) {
+      v = c >= j ? As[c * kTile + j] / ieee_sqrt(As[j * kTile + j]) : T(0);
+      lv[c] = v;
+    }
+    __syncthreads();
+    if (g == 0 && c >= j) As[c * kTile + j] = v;
+    if (c > j) {
+      const T lk = lv[c];
+      for (int i = j + 1 + g; i < kTile; i += 2)
+        if (c <= i) As[i * kTile + c] = fma_(-lv[i], lk, As[i * kTile + c]);
+    }
+    __syncthreads();
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(256) bench(const T* K, T* L, T* W, long long* cyc, int reps) {
@@ -80,7 +106,7 @@ __global__ void __launch_bounds__(256) old_step(const T* K, T* L, T* W, int reps
   for (int rep = 0; rep < reps; ++rep) {
     for (int e = threadIdx.x; e < kTile * kTile; e += 256) As[e] = K[e];
     __syncthreads();
-    tile_cholesky(As, As + kTile * kTile);
+    unblocked_cholesky(As, As + kTile * kTile);
     for (int e = threadIdx.x; e < kTile * kTile; e += 256)
       L[e] = (e % kTile) <= (e / kTile) ? As[e] : T(0);
     if (threadIdx.x < kTile) tile_forward_subst((const T*)As, W, kTile, threadIdx.x);

@@ -105,6 +105,25 @@ def test_k2_propagates_a_zero_pivot(dev):
     assert torch.isfinite(W[0, :128, :128]).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [15, 16, 63, 64, 127])
+def test_k2_non_finite_rows_from_a_zero_pivot_at_a_sub_panel_border(dev, dtype, p):
+    """A zero pivot at local row p of the second of three tiles, as the
+    Pallas kernel's row recurrence gives it: every entry of that tile's rows
+    from p on is non-finite, its rows above p and the other tiles finite,
+    and W zero off the diagonal tiles."""
+    L = torch.linalg.cholesky(_spd_batch(1, 384, dev, dtype, seed=p))
+    L[0, 128 + p, 128 + p] = 0.0
+    W = chol.tile_tri_inv(L.contiguous())[0]
+    tiles = [W[128 * t:128 * (t + 1), 128 * t:128 * (t + 1)] for t in range(3)]
+    assert torch.isfinite(tiles[0]).all() and torch.isfinite(tiles[2]).all()
+    assert torch.isfinite(tiles[1][:p]).all() and not torch.isfinite(tiles[1][p:]).any()
+    off = torch.ones_like(W, dtype=torch.bool)
+    for t in range(3):
+        off[128 * t:128 * (t + 1), 128 * t:128 * (t + 1)] = False
+    assert torch.count_nonzero(W[off]) == 0
+
+
 def test_mvn_log_prob_on_card_matches_cpu(dev):
     rng = np.random.default_rng(2)
     x = np.sort(rng.uniform(-1, 1, 300))
@@ -182,6 +201,25 @@ def test_k3_propagates_nan_on_indefinite_input(dev):
     assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
     assert torch.isfinite(L[1, :60, :60]).all()
     assert torch.isnan(L[1, 60:, 60]).all() and not torch.isfinite(W[1, 60:]).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [15, 16, 63, 64, 127])
+def test_k3_nan_from_a_bad_pivot_at_a_sub_panel_border(dev, dtype, p):
+    """A bad pivot at row p of the second tile of a batch, at each border
+    of the blocked routine's 16-column sub-panels: L zero above the
+    diagonal, its columns before p finite and every lower entry from p on
+    NaN; every entry of W's rows from p on non-finite, above the diagonal
+    too, and its rows above p finite; the first tile untouched."""
+    A = _spd_batch(2, 128, dev, dtype, seed=p)
+    A[1, p, p] = -1.0
+    L, W = chol.tile_chol_inv(A)
+    assert torch.isfinite(L[0]).all() and torch.isfinite(W[0]).all()
+    assert torch.count_nonzero(torch.triu(L[1], 1)) == 0
+    assert torch.isfinite(L[1, :, :p]).all()
+    low = torch.ones_like(L[1, p:, p:], dtype=torch.bool).tril()
+    assert torch.isnan(L[1, p:, p:][low]).all()
+    assert torch.isfinite(W[1, :p]).all() and not torch.isfinite(W[1, p:]).any()
 
 
 def test_chol_inv_backward_on_card_matches_cpu(dev):
