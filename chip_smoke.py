@@ -9,9 +9,10 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    source, in parallel) and times it;
 3. holds kernel K1 (fused gram) against its plain PyTorch twin on the card
    over RBF/Matérn, X≡Z with scalar and vector noise, a ragged X≠Z, d ∈ {1, 8}
-   and batch ∈ {1, 4}, and a batch of 1×1 grams larger than one launch's
-   grid, and times both at n = m = 4096, d = 1 (kernel and twin timed in
-   turns, plain-kernel-kernel-plain);
+   and batch ∈ {1, 4}, and a batch of 1×1 grams larger than one launch
+   takes, and times both at n = m = 4096, d = 1 and at viGP config 2's
+   2455 × 2455, d = 2, Matérn (kernel and twin timed in turns,
+   plain-kernel-kernel-plain);
 4. holds kernel K2 (128-tile triangular inverse) and ``blocked_trtri`` built
    on it against the twin, in float64 (the factor path's dtype) and float32,
    at n ∈ {4096, 8192} and a batch of 8 at n = 1024, and times K2, the twin
@@ -34,8 +35,8 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    and an indefinite matrix that must come back NaN, checks K4's NaN from a
    bad pivot at each sub-panel border of a tile, and times K4, K5, their
    twins, the library calls and the pair against the composed factor
-   (``cholesky_ex`` + ``blocked_trtri``) at n = 8192, with K4's phase split
-   (products, diagonal step, panel TRSM);
+   (``cholesky_ex`` + ``blocked_trtri``) at n = 8192, with K4's and K5's
+   phase splits (products, diagonal tiles, panel TRSM);
 7. checks the ExactGP potential and gradient on the card against the CPU
    twins at n = 512 on both likelihood routes (fused and composed), and the
    routes against each other; then times likelihood+grad on both routes at
@@ -49,7 +50,8 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
 9. holds K1 and K2 against their twins at that path's own shapes and
    inputs: the fit's 4096×4096 gram, and predict's grams (4096×4096,
    1024×4096, 1024×1024) and float64 factors for one chunk of posterior
-   draws, the chunk sized as ``predict`` sizes it; drives K4/K5's path,
+   draws, the chunk sized as ``predict`` sizes it, timing K1 on the chunk's
+   k_XX and its batched cross-gram k_pX; drives K4/K5's path,
    ``panel_chol_factors`` on that fit's gram (its first posterior draw's,
    with the factor path's base jitter) in float64 and float32, counting their
    launches, holds them against their twins there and times them, the
@@ -72,7 +74,7 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     launches, then holds K1 and K2 against their twins on the fitted
     model's own grams and float64 factors;
 13. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
-    bound, launches on every path; K4's phase split on the fit's gram),
+    bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -144,6 +146,7 @@ SPARSE_RMSE_MAX = 0.005           # the JAX package on the CPU: 0.00231
 SPARSE_NOISE_RANGE = (0.00125, 0.005)  # the JAX package on the CPU: 0.00251
 # BASELINE config 2 (bench.py:374-430)
 VIGP_SIZE, VIGP_STEPS, VIGP_STEP_SIZE, VIGP_BATCH = 128, 250, 0.05, 1024
+VIGP_N = 2455                     # observed pixels of config 2's image
 VIGP_RMSE_MAX = 0.01              # the JAX package on the CPU: 0.00136
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
@@ -282,14 +285,32 @@ def check_k1(dev) -> dict:
     X = (torch.rand((1, N_MAIN, 1), generator=g, device=dev) * 4.0 - 2.0)
     nz = torch.full((1, N_MAIN), 0.1, device=dev)
     worst = max(worst, k1_compare(f"rbf d=1 B=1 {N_MAIN}x{N_MAIN} noise=scalar", X, X, nz, True))
+    # K1 takes tens of µs: 200 launches a timing, so the clock's ramp averages out
     ms, plain = paired_ms(lambda: gram.gram_unscaled(X, X, nz, "rbf", True),
-                          lambda: gram.gram_twin(X, X, nz, "rbf", True))
-    # read X, Z and the noise once, write the gram; per element 2d + 4 flops
-    # (cross term, r², scale) and one exp; no one PyTorch call computes it
-    b = bound(4 * (2 * N_MAIN + N_MAIN + N_MAIN * N_MAIN), 6 * N_MAIN * N_MAIN)
+                          lambda: gram.gram_twin(X, X, nz, "rbf", True), 200)
+    b = k1_bound(1, N_MAIN, N_MAIN, 1)
     print(f"K1 time n=m={N_MAIN} d=1 rbf: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
+    # viGP config 2's shape: 2455 pixel coordinates in 2-D, Matérn (m % 4 = 3:
+    # rows stored element by element where a 16-byte store does not fit)
+    Xc = torch.rand((1, VIGP_N, 2), generator=g, device=dev) * VIGP_SIZE / 12.0
+    nzc = torch.full((1, VIGP_N), 0.01, device=dev)
+    worst = max(worst, k1_compare(f"matern52 d=2 B=1 {VIGP_N}x{VIGP_N} noise=scalar", Xc, Xc,
+                                  nzc, True, "matern52"))
+    ms_c2, plain_c2 = paired_ms(lambda: gram.gram_unscaled(Xc, Xc, nzc, "matern52", True),
+                                lambda: gram.gram_twin(Xc, Xc, nzc, "matern52", True), 200)
+    bc = k1_bound(1, VIGP_N, VIGP_N, 2)
+    print(f"K1 time config2 n=m={VIGP_N} d=2 matern52: kernel {ms_c2:.4f} ms, twin "
+          f"{plain_c2:.4f} ms, bound {bc['bound_ms']:.4f} ms ({bc['bound_by']})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b,
+            "config2_ms": ms_c2, "config2_plain_ms": plain_c2, "config2_bound_ms": bc["bound_ms"]}
+
+
+def k1_bound(B: int, n: int, m: int, d: int) -> dict:
+    """K1's least time: read Xs, Zs and the noise once, write the gram; per
+    element 2d + 4 flops (cross term, r², scale) and one exp. No one PyTorch
+    call computes it."""
+    return bound(4 * B * (n * d + m * d + n + n * m), B * n * m * (2 * d + 4))
 
 
 def k1_compare(label: str, Xs, Zs, nz, same: bool, kind: str = "rbf") -> float:
@@ -627,24 +648,27 @@ def panel_bound(n: int, dtype) -> dict:
     return bound(2 * n * n * torch.finfo(dtype).bits // 8, n**3 / 3, dtype)
 
 
-def panel_phases(label: str, K: torch.Tensor, t4: float, reps: int = 5) -> dict:
-    """K4's phase split on K (``cholesky_phase_ms``): the mean over ``reps``
-    launches of the ms in the products, the diagonal step and the panel
-    TRSM, printed beside K4's CUDA-event time t4."""
-    split = np.mean([panel_chol.cholesky_phase_ms(K) for _ in range(reps)], axis=0)
+def panel_phases(kernel: str, label: str, A: torch.Tensor, t: float, reps: int = 5) -> dict:
+    """K4's phase split on K (``cholesky_phase_ms``) or K5's on L
+    (``tri_inv_phase_ms``): the mean over ``reps`` launches of the ms in the
+    products, the diagonal tiles (K4's step, K5's inverses) and the panel
+    TRSM, printed beside the kernel's CUDA-event time t."""
+    fn = panel_chol.cholesky_phase_ms if kernel == "K4" else panel_chol.tri_inv_phase_ms
+    split = np.mean([fn(A) for _ in range(reps)], axis=0)
     total = float(split.sum())
-    tiles = K.shape[-1] // chol.TILE
-    print(f"K4 phases {label}: products {split[0]:.4f} ms ({split[0] / total:.1%}), diagonal "
-          f"step {split[1]:.4f} ms ({split[1] / total:.1%}; {split[1] / tiles:.4f} ms a panel), "
+    tiles = A.shape[-1] // chol.TILE
+    diag = "diagonal step" if kernel == "K4" else "diagonal inverses"
+    print(f"{kernel} phases {label}: products {split[0]:.4f} ms ({split[0] / total:.1%}), {diag} "
+          f"{split[1]:.4f} ms ({split[1] / total:.1%}; {split[1] / tiles:.4f} ms a panel), "
           f"panel TRSM {split[2]:.4f} ms ({split[2] / total:.1%}); sum {total:.4f} ms, "
-          f"CUDA-event time {t4:.4f} ms", flush=True)
+          f"CUDA-event time {t:.4f} ms", flush=True)
     return dict(zip(("products", "diagonal", "trsm"), map(float, split)))
 
 
 def time_panel(label: str, K: torch.Tensor, iters: int) -> dict:
     """K4, K5, their twins, the library calls and the pair against the
     composed factor on one matrix K (n, n), kernel and plain in turns, and
-    K4's phase split."""
+    K4's and K5's phase splits."""
     n, dtype = K.shape[-1], K.dtype
     L = panel_chol.panel_cholesky(K)
     eye = torch.eye(n, device=K.device, dtype=dtype)
@@ -664,10 +688,10 @@ def time_panel(label: str, K: torch.Tensor, iters: int) -> dict:
           f"pair {t_pair:.4f} ms, cholesky_ex+blocked_trtri {t_comp:.4f} | bound each "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']}; bytes {2 * n * n * size / 1e6:.1f} MB, "
           f"left-looking re-reads {reread / 1e9:.2f} GB)", flush=True)
-    phases = panel_phases(label, K, t4)
     return {"k4": {"ms": t4, "plain_ms": t4_twin, "library_ms": t4_lib, **b,
-                   "phases_ms": phases},
-            "k5": {"ms": t5, "plain_ms": t5_twin, "library_ms": t5_lib, **b}}
+                   "phases_ms": panel_phases("K4", label, K, t4)},
+            "k5": {"ms": t5, "plain_ms": t5_twin, "library_ms": t5_lib, **b,
+                   "phases_ms": panel_phases("K5", label, L, t5)}}
 
 
 def check_panel_nan(dev, dtype) -> None:
@@ -925,6 +949,12 @@ def check_main_shapes(gp, chunk: int) -> None:
     print(f"K1 time predict k_XX B={B} {n}x{n}: kernel {ms:.4f} ms, twin {plain:.4f} ms",
           flush=True)
     del k_xx
+    nz0 = torch.zeros((B, m), device=X.device)
+    ms, plain = paired_ms(lambda: gram.gram_unscaled(Xn, Xs, nz0, "rbf", False),
+                          lambda: gram.gram_twin(Xn, Xs, nz0, "rbf", False), 50)
+    b = k1_bound(B, m, n, 1)
+    print(f"K1 time predict k_pX B={B} {m}x{n}: kernel {ms:.4f} ms, twin {plain:.4f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
 
     K = gp.kernel(X, X, s, s["noise"])
     L, W, _ = linalg._chol_tri_factors_ld(K)

@@ -9,109 +9,186 @@
 // with map(r2) = exp(-r2/2) (RBF) or (1 + sqrt5 r + 5/3 r2) exp(-sqrt5 r),
 // r = sqrt(max(r2, 1e-10)) (Matern-5/2). The caller applies k_scale.
 //
-// Layout: one thread per output element, 32 x 8 threads per block, so each
-// warp stores 32 neighbouring floats of one output row (128-byte stores).
-// A block stages its 8 rows of Xs and 32 rows of Zs, a feature chunk of 32
-// at a time, in shared memory together with their squared norms, so any d
-// works. The cross term is a plain fp32 FMA chain: the "highest" precision
-// contract of the JAX package, with no TF32 or bf16 anywhere.
-//
 // What bounds it on an H100: at the main path's d = 1 each element costs a
-// handful of FMAs and one expf, and the n*m*4-byte output store dominates
-// (64 MB at n = m = 4096, about 20 us of HBM bandwidth). The design keeps
-// that store the only full-size traffic: the norms, the map and the
-// diagonal add are fused into the epilogue (no second pass over the gram,
-// no scatter for the diagonal), and the inputs are read once per block
-// from shared memory. A batch dimension (grid.z) makes a chunk of posterior
-// draws one launch.
+// handful of FMAs and one expf, so the n*m*4-byte output store is the bound
+// (64 MB at n = m = 4096, 20 us at the HBM rate). A kernel that computes one
+// element per thread, in 8 x 32 blocks, took 5.4x that bound on the card:
+// at 65 536 blocks for n = m = 4096, each block's staging, two barriers and
+// norm warps for 256 four-byte stores cost more than the stores. So:
+//
+//   - A block owns 64 rows x 128 columns of one matrix; each of its 8 warps
+//     owns 8 rows, each lane 4 consecutive columns of them, and stores them
+//     with one 16-byte store a row: a warp writes 512 contiguous bytes of a
+//     row per store. The row and column norms are computed once per tile
+//     into shared memory.
+//   - The grid is a grid-stride loop over (batch, row tile, column tile),
+//     at most 4 waves of resident blocks: n = m = 4096 is 2048 tiles on
+//     1584 blocks, and a batch of B 1 x 1 grams (the sparse GP's k(x, x)
+//     diagonal) costs B / 1584 passes of each block, not B blocks.
+//   - A lane computes its 8 rows in two passes of 4, kept as a loop, so
+//     that the cross terms, the norms and the map's temporaries fit in 85
+//     registers (3 blocks an SM). At 64 registers (4 blocks an SM) the
+//     kernel spilled and took longer on the card (PERF.md).
+//   - A row whose 4-column group is not 16-byte aligned (m % 4 != 0, or a
+//     ragged last group) is stored element by element: any n, m and d work.
+//
+// The features are staged in chunks of 32, feature-major, so the cross term
+// reads one broadcast per row and one float4 per 4 columns. The cross term
+// is a plain fp32 FMA chain in feature order, and the squared norms too, as
+// in the one-element-per-thread form: the "highest" precision contract of
+// the JAX package, with no TF32 or bf16 anywhere. The noise add stays fused
+// on the global diagonal.
 //
 // Build without --use_fast_math: expf and sqrtf must be the accurate ones.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBX = 32;  // output columns per block
-constexpr int kBY = 8;   // output rows per block
-constexpr int kDC = 32;  // features staged per chunk
+constexpr int kRows = 64;                     // output rows per tile
+constexpr int kCols = 128;                    // output columns per tile
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = kRows / kWarps;  // 8: each lane's rows
+constexpr int kPass = kRowsPerWarp / 2;       // rows a lane computes at once
+constexpr int kDC = 32;                       // features staged per chunk
+constexpr int kBlocksPerSM = 3;               // the launch bound and the grid's cap
 constexpr float kSqrt5 = 2.2360679774997896f;
 
 template <int KIND>
-__global__ void __launch_bounds__(kBX * kBY)
+__device__ __forceinline__ float map_r2(float r2) {
+  if (KIND == 0) return expf(-0.5f * r2);
+  const float s5r = kSqrt5 * sqrtf(fmaxf(r2, 1e-10f));
+  return (1.0f + s5r + (5.0f / 3.0f) * r2) * expf(-s5r);
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 gram_kernel(const float* __restrict__ X, const float* __restrict__ Z,
             const float* __restrict__ noise, float* __restrict__ out,
-            int n, int m, int d, int add_noise) {
-  __shared__ float xs[kBY][kDC + 1];
-  __shared__ float zs[kBX][kDC + 1];
-  __shared__ float x2s[kBY];
-  __shared__ float z2s[kBX];
+            int batch, int n, int m, int d, int add_noise) {
+  __shared__ __align__(16) float xs[kDC][kRows];   // feature-major
+  __shared__ __align__(16) float zs[kDC][kCols];
+  __shared__ __align__(16) float x2s[kRows];
+  __shared__ __align__(16) float z2s[kCols];
 
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kBX + tx;
-  const int row0 = blockIdx.y * kBY, col0 = blockIdx.x * kBX;
-  X += (size_t)b * n * d;
-  Z += (size_t)b * m * d;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int row_tiles = (n + kRows - 1) / kRows, col_tiles = (m + kCols - 1) / kCols;
+  const long long tiles = (long long)batch * row_tiles * col_tiles;
+  // at least one chunk, so that d = 0 passes the same barriers
+  const int chunks = max(1, (d + kDC - 1) / kDC);
 
-  if (tid < kBY) x2s[tid] = 0.f;
-  if (tid < kBX) z2s[tid] = 0.f;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int b = (int)(t / ((long long)row_tiles * col_tiles));
+    const int rc = (int)(t % ((long long)row_tiles * col_tiles));
+    const int row0 = (rc / col_tiles) * kRows, col0 = (rc % col_tiles) * kCols;
+    const float* Xb = X + (size_t)b * n * d;
+    const float* Zb = Z + (size_t)b * m * d;
+    const int col = col0 + 4 * lane;
 
-  float cross = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kDC) {
-    const int kc = min(kDC, d - k0);
-    // stage only the kc live features of the chunk (kc = 1 on the main path)
-    for (int e = tid; e < kBY * kc; e += kBX * kBY) {
-      const int r = e / kc, c = e % kc, gr = row0 + r;
-      xs[r][c] = gr < n ? X[(size_t)gr * d + k0 + c] : 0.f;
+    // the lane's 8 rows in two passes of 4, which halves the cross terms
+    // held in registers; the features are staged once when they fit one
+    // chunk, and again for the second pass when they do not
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      float cross[kPass][4];
+#pragma unroll
+      for (int i = 0; i < kPass; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) cross[i][v] = 0.f;
+      float norm = 0.f;  // thread tid < 64: row tid's; 64 <= tid < 192: column tid - 64's
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int k0 = ch * kDC, kc = max(0, min(kDC, d - k0));
+        if (h == 0 || chunks > 1) {
+          for (int e = tid; e < kRows * kc; e += kThreads) {
+            const int c = e / kRows, r = e % kRows, gr = row0 + r;
+            xs[c][r] = gr < n ? Xb[(size_t)gr * d + k0 + c] : 0.f;
+          }
+          for (int e = tid; e < kCols * kc; e += kThreads) {
+            const int c = e / kCols, r = e % kCols, gc = col0 + r;
+            zs[c][r] = gc < m ? Zb[(size_t)gc * d + k0 + c] : 0.f;
+          }
+          __syncthreads();
+        }
+        if (h == 0) {
+          if (tid < kRows) {
+            for (int c = 0; c < kc; ++c) norm = fmaf(xs[c][tid], xs[c][tid], norm);
+          } else if (tid < kRows + kCols) {
+            for (int c = 0; c < kc; ++c) norm = fmaf(zs[c][tid - kRows], zs[c][tid - kRows], norm);
+          }
+        }
+        for (int c = 0; c < kc; ++c) {
+          const float4 z = *reinterpret_cast<const float4*>(&zs[c][4 * lane]);
+          const float4 x = *reinterpret_cast<const float4*>(&xs[c][kRowsPerWarp * warp + kPass * h]);
+          const float xv[kPass] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int i = 0; i < kPass; ++i) {
+            cross[i][0] = fmaf(xv[i], z.x, cross[i][0]);
+            cross[i][1] = fmaf(xv[i], z.y, cross[i][1]);
+            cross[i][2] = fmaf(xv[i], z.z, cross[i][2]);
+            cross[i][3] = fmaf(xv[i], z.w, cross[i][3]);
+          }
+        }
+        if (chunks > 1) __syncthreads();  // before the next chunk is staged
+      }
+      if (h == 0) {
+        if (tid < kRows) x2s[tid] = norm;
+        else if (tid < kRows + kCols) z2s[tid - kRows] = norm;
+        __syncthreads();
+      }
+      if (col >= m) continue;
+      const float4 z2 = *reinterpret_cast<const float4*>(&z2s[4 * lane]);
+      const float z2v[4] = {z2.x, z2.y, z2.z, z2.w};
+#pragma unroll
+      for (int i = 0; i < kPass; ++i) {
+        const int r = kRowsPerWarp * warp + kPass * h + i, row = row0 + r;
+        if (row >= n) break;
+        const float x2 = x2s[r];
+        float k[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          k[v] = map_r2<KIND>(fmaxf(x2 - 2.0f * cross[i][v] + z2v[v], 0.0f));
+          if (add_noise && row == col + v) k[v] += noise[(size_t)b * n + row];
+        }
+        float* o = out + ((size_t)b * n + row) * m + col;
+        if (col + 4 <= m && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+          *reinterpret_cast<float4*>(o) = make_float4(k[0], k[1], k[2], k[3]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            if (col + v < m) o[v] = k[v];
+        }
+      }
     }
-    for (int e = tid; e < kBX * kc; e += kBX * kBY) {
-      const int r = e / kc, c = e % kc, gc = col0 + r;
-      zs[r][c] = gc < m ? Z[(size_t)gc * d + k0 + c] : 0.f;
-    }
-    __syncthreads();
-    // warp 0 accumulates the row norms, warp 1 the column norms
-    if (tid < kBY) {
-      float s = x2s[tid];
-      for (int c = 0; c < kc; ++c) s = fmaf(xs[tid][c], xs[tid][c], s);
-      x2s[tid] = s;
-    } else if (tid >= 32 && tid < 32 + kBX) {
-      const int r = tid - 32;
-      float s = z2s[r];
-      for (int c = 0; c < kc; ++c) s = fmaf(zs[r][c], zs[r][c], s);
-      z2s[r] = s;
-    }
-    for (int c = 0; c < kc; ++c) cross = fmaf(xs[ty][c], zs[tx][c], cross);
-    __syncthreads();
+    __syncthreads();  // the tile's reads of shared memory end before the next tile's staging
   }
-
-  const int row = row0 + ty, col = col0 + tx;
-  if (row >= n || col >= m) return;  // ragged edge
-  const float r2 = fmaxf(x2s[ty] - 2.0f * cross + z2s[tx], 0.0f);
-  float k;
-  if (KIND == 0) {
-    k = expf(-0.5f * r2);
-  } else {
-    const float s5r = kSqrt5 * sqrtf(fmaxf(r2, 1e-10f));
-    k = (1.0f + s5r + (5.0f / 3.0f) * r2) * expf(-s5r);
-  }
-  if (add_noise && row == col) k += noise[(size_t)b * n + row];
-  out[((size_t)b * n + row) * m + col] = k;
 }
 
 }  // namespace
 
 // kind: 0 = RBF, 1 = Matern-5/2. All pointers are device pointers to
 // contiguous float32: X (batch, n, d), Z (batch, m, d), noise (batch, n),
-// out (batch, n, m). Returns cudaGetLastError() after the launch.
+// out (batch, n, m). Returns the first CUDA error of the device query or
+// cudaGetLastError() after the launch.
 extern "C" int gpax_gram_f32(const float* X, const float* Z, const float* noise,
                              float* out, int batch, int n, int m, int d,
                              int kind, int add_noise, cudaStream_t stream) {
-  const dim3 block(kBX, kBY);
-  const dim3 grid((m + kBX - 1) / kBX, (n + kBY - 1) / kBY, batch);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles =
+      (long long)batch * ((n + kRows - 1) / kRows) * ((m + kCols - 1) / kCols);
+  // up to 4 waves of resident blocks, so the scheduler balances the last
+  // one; a larger grid loops
+  const long long cap = 4LL * sms * kBlocksPerSM;
+  const int blocks = (int)(tiles < cap ? tiles : cap);
   if (kind == 0) {
-    gram_kernel<0><<<grid, block, 0, stream>>>(X, Z, noise, out, n, m, d, add_noise);
+    gram_kernel<0><<<blocks, kThreads, 0, stream>>>(X, Z, noise, out, batch, n, m, d, add_noise);
   } else {
-    gram_kernel<1><<<grid, block, 0, stream>>>(X, Z, noise, out, n, m, d, add_noise);
+    gram_kernel<1><<<blocks, kThreads, 0, stream>>>(X, Z, noise, out, batch, n, m, d, add_noise);
   }
   return (int)cudaGetLastError();
 }

@@ -15,18 +15,21 @@
 // K4, for each panel j (left-looking, as on the TPU):
 //   1. P = K[rows >= 128j, panel j] - L[rows, :128j] L[panel j rows, :128j]^T,
 //      spread over all blocks in 64 x 128 tiles; when there are fewer tiles
-//      than blocks, each tile's k-range is split and the partial sums are
-//      added by a second pass after a barrier (split-K, in a fixed order, so
-//      the result does not depend on the schedule);
+//      than blocks, each tile's k-range is split (Pieces) and the partial
+//      sums are added by a second pass after a barrier (split-K, in a fixed
+//      order, so the result does not depend on the schedule);
 //   2. one block per matrix factors the 128 x 128 diagonal tile of P in
 //      shared memory, blocked (tile_chol_blocked.cuh), and writes L_D
 //      (zero above the diagonal) into L and its inverse W_D to scratch;
 //   3. the panel TRSM L[rows > diagonal tile, panel j] = P W_D^T, in place:
 //      each 64-row tile reads all 128 columns of its rows before it writes.
 // K5 first inverts every diagonal tile of L at once (they are independent),
-// writing W_D^T onto W^T's diagonal, then for each panel j in order:
+// one block a tile on the blocked routine's inverse half
+// (tile_chol_blocked.cuh), writing W_D^T onto W^T's diagonal and W_D to
+// scratch, then for each panel j in order:
 //   1. acc = W^T[rows < 128j, :128j] L[panel j rows, :128j]^T, skipping the
-//      zeros of the upper-triangular W^T (row r starts at its own panel);
+//      zeros of the upper-triangular W^T (row r starts at its own panel),
+//      split along k into pieces of about equal length (Pieces);
 //   2. W^T[rows < 128j, panel j] = -acc W_D^T, in place.
 // Both products are A B^T with A and B read along rows, k contiguous, so the
 // loads of every phase are coalesced in row-major storage; W^T is kept (the
@@ -47,19 +50,28 @@
 //     mma.sync is its only float64 tensor-core path. The 16-deep k-slices
 //     go through shared memory, padded so that the fragment loads hit
 //     distinct banks, the next slice's loads in flight in registers. One
-//     block an SM (the tile's 132 KB) leaves 8 warps to hide latency, and
+//     block an SM (the tile's 133 KB) leaves 8 warps to hide latency, and
 //     there is no deeper pipeline. Float32 stays on CUDA-core FMA, because
-//     the port keeps TF32 off.
+//     the port keeps TF32 off: its k-slices come by cp.async into a ring of
+//     4 stages and are read as float4 along k (gemm_nt).
 //   - About 3 n / 128 grid barriers, and the split-K passes of the late
 //     panels. The left-looking products also re-read ~n^3 / (2 * 128)
-//     elements of the left factor, through L2.
-// Measured times and K4's phase split (phase_ns): PERF.md. In float64 one
-// block fits an SM (132 KB of shared memory), in float32 three.
+//     elements of the left factor, through L2. K5's panels have fewer row
+//     tiles (j for panel j) than blocks, so each goes through split-K, cut
+//     in proportion to the rows' k-ranges so that the top tile's range
+//     does not set the panel's time.
+// Measured times and the phase splits (phase_ns): PERF.md. In float64 one
+// block fits an SM (133 KB of shared memory), in float32 two (its launch
+// bound; shared memory would allow three).
 //
 // The pivot is the IEEE sqrt and division, and nothing is clamped: an
 // indefinite matrix's first bad pivot gives NaN in L_D and W_D from its
 // column on, which every later panel of L and W picks up through the
-// products.
+// products. K5 adds each row's poison (gpax::row_poison: 0, or NaN from a
+// zero or NaN pivot on) to every entry of W_D's row it stores, as K2 does,
+// so the rows of W from a bad pivot on are non-finite in every column up
+// to the end of its panel, as the TPU kernel's row recurrence makes them,
+// and the rows above it are unchanged.
 //
 // Memory visibility: K is the only read-only operand (__restrict__); L, W^T
 // and the scratch are written and read again by other blocks after a grid
@@ -81,13 +93,10 @@ constexpr int kBM = 64, kBN = kT, kBK = 16;      // product tile: 64 rows x the 
 constexpr int kTM = kBM / 16, kTN = kBN / 16;    // 4 x 8 outputs per thread (float32)
 constexpr int kTileElems = kBM * kBN;
 
-// the diagonal tile and the pivot column; the products' k-slices reuse it
+// A block's shared memory: the diagonal tile, its pivots and K5's row
+// poisons; the products' k-slices reuse it.
 template <typename T>
-struct PanelSmem {
-  static constexpr int bytes = (kT * kT + kT) * (int)sizeof(T);
-};
-static_assert(kBK * (kBM + 1) + kBK * (kBN + 1) <= kT * kT + kT,
-              "the product's k-slices fit in the diagonal tile's buffer");
+using Smem = gpax::TileSmem<T>;
 
 // The accumulator of one 64 x 128 product tile, in the registers of the
 // block's 256 threads; each(f) calls f(row, column, value) for the thread's
@@ -130,39 +139,97 @@ struct Acc<double> {
   }
 };
 
+// 16-byte copies from global to shared memory that bypass the registers
+// and L1 (cp.async.cg: through L2, which the other blocks' writes reach
+// before a grid barrier), in commit groups that a thread waits for
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The float32 k-slices: a ring of kStages stages in shared memory, each the
+// 64 rows of A and the 128 rows of B over 16 k, row-major with rows padded
+// to 20 floats, so that 16-byte reads along k from 8 consecutive rows fall
+// in 8 distinct groups of 4 banks.
+constexpr int kLdF = kBK + 4;
+constexpr int kStages = 4;
+constexpr int kStageF = (kBM + kBN) * kLdF;
+static_assert(kStages * kStageF * (int)sizeof(float) <= Smem<float>::bytes,
+              "the float32 k-slice ring fits in the diagonal tile's buffer");
+
 // acc = A[0:64, k0:k1] B[0:128, k0:k1]^T, A and B row-major with leading
-// dimensions lda and ldb, through shared-memory k-slices of 16. Each ends
-// with a barrier, after which every read of A and B is complete (so a
-// caller may overwrite A in place).
+// dimensions lda and ldb, k0 and k1 multiples of 16. Each ends with a
+// barrier, after which every read of A and B is complete (so a caller may
+// overwrite A in place).
+//
+// Float32 runs on CUDA-core FMA, not the tensor cores: the port keeps TF32
+// off (it would round the operands to 10 bits), so the card's float32 peak
+// is 67 TFLOP/s of FFMA. Each thread copies 3 of a slice's 768 16-byte
+// pieces with cp.async, kStages - 1 slices ahead of the one the block
+// multiplies, so the next slices' loads are in flight during the FMAs and
+// a slice costs one barrier. A thread reads its 4 rows of A and, one at a
+// time, its 8 rows of B as float4 along k: 12 16-byte shared loads for 128
+// FMAs every 4 k (the 8 lanes of a quarter-warp read 8 consecutive B rows,
+// conflict-free, and one A row, a broadcast). Each entry's FMAs run in k
+// order.
 __device__ __forceinline__ void gemm_nt(const float* A, size_t lda, const float* B, size_t ldb,
                                         int k0, int k1, Acc<float>& acc, float* smem) {
-  float* As = smem;                    // [kBK][kBM + 1], k-major
-  float* Bs = smem + kBK * (kBM + 1);  // [kBK][kBN + 1]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
     for (int jj = 0; jj < kTN; ++jj) acc.v[i][jj] = 0.0f;
-  for (int k = k0; k < k1; k += kBK) {
-    for (int e = tid; e < kBM * kBK; e += kThreads)
-      As[(e % kBK) * (kBM + 1) + e / kBK] = A[(e / kBK) * lda + k + e % kBK];
-    for (int e = tid; e < kBN * kBK; e += kThreads)
-      Bs[(e % kBK) * (kBN + 1) + e / kBK] = B[(e / kBK) * ldb + k + e % kBK];
-    __syncthreads();
+  // this thread's pieces: row cr of A, rows cr and cr + 64 of B, k offset cc
+  const int cr = tid / 4, cc = 4 * (tid % 4), slices = (k1 - k0) / kBK;
+  const float* a_src = A + cr * lda + k0 + cc;
+  const float* b_src = B + cr * ldb + k0 + cc;
+  const size_t b_half = 64 * ldb;
+  auto issue = [&](int s) {
+    if (s < slices) {
+      float* st = smem + (s % kStages) * kStageF;
+      cp_async16(st + cr * kLdF + cc, a_src + s * kBK);
+      cp_async16(st + (kBM + cr) * kLdF + cc, b_src + s * kBK);
+      cp_async16(st + (kBM + 64 + cr) * kLdF + cc, b_src + b_half + s * kBK);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], b[kTN];
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int s = 0; s < slices; ++s) {
+    cp_async_wait<kStages - 2>();  // this thread's pieces of slice s have landed
+    __syncthreads();               // everyone's have, and slice s - 1 is done
+    issue(s + kStages - 1);        // into slice s - 1's stage
+    const float* As = smem + (s % kStages) * kStageF;
+    const float* Bs = As + kBM * kLdF;
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = As[kk * (kBM + 1) + ty + 16 * i];
-#pragma unroll
-      for (int jj = 0; jj < kTN; ++jj) b[jj] = Bs[kk * (kBN + 1) + tx + 16 * jj];
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 a[kTM];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * kLdF + kk);
 #pragma unroll
-        for (int jj = 0; jj < kTN; ++jj) acc.v[i][jj] = fmaf(a[i], b[jj], acc.v[i][jj]);
+      for (int jj = 0; jj < kTN; ++jj) {
+        const float4 b = *reinterpret_cast<const float4*>(Bs + (tx + 16 * jj) * kLdF + kk);
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          float& c = acc.v[i][jj];
+          c = fmaf(a[i].x, b.x, c);
+          c = fmaf(a[i].y, b.y, c);
+          c = fmaf(a[i].z, b.z, c);
+          c = fmaf(a[i].w, b.w, c);
+        }
+      }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 constexpr int kLd = kBK + 4;  // a float64 k-slice row, padded: fragment loads hit 16 bank pairs
@@ -236,52 +303,139 @@ __device__ __forceinline__ void store_tile(const Acc<T>& acc, T alpha, const T* 
   });
 }
 
-// how many pieces each tile's k-range is cut into: enough for every block
-// to hold one piece when the tiles are fewer than the blocks
-__device__ __forceinline__ int splits(int tiles, int max_split) {
-  if (tiles >= (int)gridDim.x || max_split <= 1) return 1;
-  return min((int)gridDim.x / tiles, max_split);
-}
+// How one panel's product is cut along k: the tiles are the 64-row tiles u
+// of rows [row0, row0 + 64 rt) of each matrix, tile u's k-range is
+// [kstart(u), jT). When the tiles (batch * rt) are at least the blocks,
+// each tile is one piece. Otherwise each block holds at most one piece,
+// and a second pass sums each tile's pieces in order (split-K):
+//   - uniform k-ranges (K4): each tile is cut into S = blocks / tiles
+//     equal pieces;
+//   - K5's upper-triangular A, whose row tile u starts at its own panel:
+//     the top tile's range is jT and the two tiles at the diagonal have
+//     128, so each tile is cut into ceil(slices(u) / len) pieces of about
+//     equal length, len the least number of k-slices for which the pieces
+//     are at most the blocks in all (a binary search): pieces in
+//     proportion to the range, and the longest as short as equal pieces
+//     allow.
+// A matrix's pieces are numbered tile by tile; the sums over tiles are
+// taken by every warp at once (every lane gets them), so no barrier is
+// needed.
+struct Pieces {
+  int rt, row0, jT, S, len, per_matrix;  // S: pieces a tile when uniform, else 0
+  bool upper;
+
+  __device__ int kstart(int u) const { return upper ? ((row0 + u * kBM) / kT) * kT : 0; }
+  __device__ int slices(int u) const { return (jT - kstart(u)) / kBK; }
+  __device__ int count(int u) const { return S ? S : (slices(u) + len - 1) / len; }
+
+  // sum of f(u) over u < end
+  template <typename F>
+  __device__ int warp_sum(int end, F f) const {
+    int sum = 0;
+    for (int u0 = 0; u0 < end; u0 += 32) {
+      const int u = u0 + threadIdx.x % 32;
+      sum += __reduce_add_sync(gpax::kFullWarp, u < end ? f(u) : 0);
+    }
+    return sum;
+  }
+
+  __device__ Pieces(int batch, int rt_, int row0_, int jT_, bool upper_)
+      : rt(rt_), row0(row0_), jT(jT_), S(0), len(1), upper(upper_) {
+    const int tiles = batch * rt, blocks = gridDim.x;
+    if (tiles >= blocks) {
+      S = 1;
+    } else if (!upper) {
+      S = max(1, min(blocks / tiles, jT / kBK));
+    } else {
+      int lo = 1, hi = slices(0);  // the top tile's range is the longest
+      while (lo < hi) {
+        len = (lo + hi) / 2;
+        if (batch * warp_sum(rt, [&](int u) { return count(u); }) <= blocks)
+          hi = len;
+        else
+          lo = len + 1;
+      }
+      len = lo;
+    }
+    per_matrix = S ? rt * S : warp_sum(rt, [&](int u) { return count(u); });
+  }
+
+  // the pieces of a matrix's tiles before tile u
+  __device__ int before(int u) const {
+    return S ? u * S : warp_sum(u, [&](int v) { return count(v); });
+  }
+
+  // the tile of a matrix's piece q (< per_matrix); first: its first piece
+  __device__ int tile_of(int q, int& first) const {
+    if (S) {
+      first = q - q % S;
+      return q / S;
+    }
+    const int lane = threadIdx.x % 32;
+    for (int u0 = 0, base = 0;; u0 += 32) {
+      const int u = u0 + lane, c = u < rt ? count(u) : 0;
+      int incl = c;  // inclusive scan of the counts over the lanes
+#pragma unroll
+      for (int o = 1; o < 32; o *= 2) {
+        const int t = __shfl_up_sync(gpax::kFullWarp, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const unsigned hit = __ballot_sync(gpax::kFullWarp, base + incl > q);
+      if (hit) {
+        const int l = __ffs(hit) - 1;
+        first = base + __shfl_sync(gpax::kFullWarp, incl - c, l);
+        return u0 + l;
+      }
+      base += __shfl_sync(gpax::kFullWarp, incl, 31);
+    }
+  }
+};
 
 // For every 64-row tile of rows [row0, row0 + 64 row_tiles) of every matrix:
 //   out[r, jT:jT+128] = C[r, jT:jT+128] + alpha sum_k A[r, k] Bop[jT + c, k]
 // over k in [kstart, jT), kstart = 0, or r's own panel start when A is
-// upper triangular (K5's W^T). C may be null (zero). part holds gridDim.x
-// tiles of partial sums.
+// upper triangular (K5's W^T), cut into pieces as Pieces says. C may be
+// null (zero). part holds gridDim.x tiles of partial sums.
 template <typename T>
 __device__ void panel_product(cg::grid_group& grid, const T* A, const T* Bop, const T* C,
                               T alpha, T* out, T* part, int batch, int n, int row0,
                               int row_tiles, int jT, bool a_upper, T* smem) {
   const size_t nn = (size_t)n * n;
   const int tiles = batch * row_tiles;
-  const int S = splits(tiles, jT / kBK);
-  for (int w = blockIdx.x; w < tiles * S; w += gridDim.x) {
-    const int t = w / S, s = w % S;
-    const size_t mb = (size_t)(t / row_tiles) * nn;
-    const int r0 = row0 + (t % row_tiles) * kBM;
-    const int kstart = a_upper ? (r0 / kT) * kT : 0;
-    const int nk = (jT - kstart) / kBK;
+  const Pieces P(batch, row_tiles, row0, jT, a_upper);
+  const bool split = batch * P.per_matrix > tiles;
+  for (int w = blockIdx.x; w < batch * P.per_matrix; w += gridDim.x) {
+    int first;
+    const int u = P.tile_of(w % P.per_matrix, first);
+    const int s = w % P.per_matrix - first, S = P.count(u), nk = P.slices(u);
+    const size_t mb = (size_t)(w / P.per_matrix) * nn;
+    const int r0 = row0 + u * kBM, kstart = P.kstart(u);
     const int k0 = kstart + kBK * (s * nk / S), k1 = kstart + kBK * ((s + 1) * nk / S);
     Acc<T> acc;
     gemm_nt(A + mb + (size_t)r0 * n, (size_t)n, Bop + mb + (size_t)jT * n, (size_t)n, k0, k1,
             acc, smem);
     const size_t o = mb + (size_t)r0 * n + jT;
-    if (S == 1)
+    if (!split)
       store_tile(acc, alpha, C ? C + o : nullptr, out + o, (size_t)n);
     else
       store_tile(acc, T(1), (const T*)nullptr, part + (size_t)w * kTileElems, (size_t)kBN);
   }
-  if (S == 1) return;
+  if (!split) return;
   grid.sync();
-  const size_t total = (size_t)tiles * kTileElems;
-  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * kThreads) {
-    const int t = (int)(e / kTileElems), w = (int)(e % kTileElems);
-    T sum = 0;
-    for (int s = 0; s < S; ++s) sum += part[((size_t)t * S + s) * kTileElems + w];
-    const size_t o = (size_t)(t / row_tiles) * nn +
-                     (size_t)(row0 + (t % row_tiles) * kBM + w / kBN) * n + jT + w % kBN;
-    out[o] = (C ? C[o] : T(0)) + alpha * sum;
+  // the second pass: each tile's elements in chunks, one chunk a block
+  const int chunks = max(1, (int)gridDim.x / tiles);
+  for (int v = blockIdx.x; v < tiles * chunks; v += gridDim.x) {
+    const int t = v / chunks, c = v % chunks, b = t / row_tiles, u = t % row_tiles;
+    const size_t first = (size_t)b * P.per_matrix + P.before(u);
+    const int S = P.count(u);
+    const size_t mo = (size_t)b * nn + (size_t)(row0 + u * kBM) * n + jT;
+    for (int e = c * kTileElems / chunks + threadIdx.x; e < (c + 1) * kTileElems / chunks;
+         e += kThreads) {
+      T sum = 0;
+      for (int s = 0; s < S; ++s) sum += part[(first + s) * kTileElems + e];
+      const size_t o = mo + (size_t)(e / kBN) * n + e % kBN;
+      out[o] = (C ? C[o] : T(0)) + alpha * sum;
+    }
   }
 }
 
@@ -299,13 +453,6 @@ __device__ void panel_trsm(T* X, const T* Wd, size_t wd_stride, T alpha, int bat
   }
 }
 
-// the row-major 128 x 128 tile at D (leading dimension n) into shared memory
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* D, int n, T* Ts) {
-  for (int e = threadIdx.x; e < kT * kT; e += kThreads) Ts[e] = D[(size_t)(e / kT) * n + e % kT];
-  __syncthreads();
-}
-
 // The device's nanosecond clock.
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -313,33 +460,33 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-// K4's phase clock: with phase_ns non-null, thread 0 of block 0 reads the
-// clock after each grid barrier and adds the time since the last reading
-// to the sum of the phase that barrier ends (phase_ns[0] the products,
-// [1] the diagonal step, [2] the panel TRSM); null costs one untaken branch.
+// K4's and K5's phase clock: with phase_ns non-null (4 zeroed integers),
+// thread 0 of block 0 reads the clock after each grid barrier and adds the
+// time since the last reading to the sum of the phase that barrier ends
+// (phase_ns[0] the products, [1] the diagonal tiles: K4's step, K5's
+// inverses, [2] the panel TRSM; [3] holds the last reading). The sums live
+// in global memory, so the clock keeps one pointer in registers through
+// the products; null costs one untaken branch.
 struct PhaseClock {
   unsigned long long* out;
-  unsigned long long last = 0, sum[3] = {0, 0, 0};
   __device__ explicit PhaseClock(unsigned long long* phase_ns)
       : out(blockIdx.x == 0 && threadIdx.x == 0 ? phase_ns : nullptr) {
-    if (out) last = global_ns();
+    if (out) out[3] = global_ns();
   }
   __device__ __forceinline__ void lap(int phase) {
     if (out) {
       const unsigned long long t = global_ns();
-      sum[phase] += t - last;
-      last = t;
+      out[phase] += t - out[3];
+      out[3] = t;
     }
-  }
-  __device__ __forceinline__ void write() {
-    if (out) for (int i = 0; i < 3; ++i) out[i] = sum[i];
   }
 };
 
-// float32 keeps 3 blocks an SM (85 registers a thread); float64's tile
-// leaves room for one
+// float32 keeps 2 blocks an SM (128 registers a thread: at 85, for 3 blocks
+// an SM, the product tile and the diagonal step spilled and took longer on
+// the card); float64's tile leaves room for one
 template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 panel_cholesky_kernel(const T* __restrict__ K, T* L, T* Wd, T* part, int batch, int n,
                       unsigned long long* phase_ns) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -379,37 +526,56 @@ panel_cholesky_kernel(const T* __restrict__ K, T* L, T* Wd, T* part, int batch, 
     grid.sync();
     clock.lap(2);
   }
-  clock.write();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-panel_tri_inv_t_kernel(const T* __restrict__ L, T* Wt, T* Wd, T* part, int batch, int n) {
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
+panel_tri_inv_t_kernel(const T* __restrict__ L, T* Wt, T* Wd, T* part, int batch, int n,
+                       unsigned long long* phase_ns) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   cg::grid_group grid = cg::this_grid();
+  PhaseClock clock(phase_ns);
   const int nT = n / kT;
   const size_t nn = (size_t)n * n;
-  // the inverses W_D of every diagonal tile, and W_D^T on W^T's diagonal
+  // the inverse W_D of every diagonal tile, one block a tile, on the
+  // blocked routine's inverse half in the swizzled tile: W_D (row-major)
+  // into the scratch, W_D^T onto W^T's diagonal, each entry of W_D's row r
+  // plus the row's poison z_r
+  T* inv = smem + Smem<T>::inv;
+  T* z = smem + Smem<T>::poison;
   for (int item = blockIdx.x; item < batch * nT; item += gridDim.x) {
     const int b = item / nT, jT = (item % nT) * kT;
-    load_tile(L + b * nn + (size_t)jT * n + jT, n, smem);
-    T* Wdj = Wd + (size_t)item * kT * kT;
-    if (threadIdx.x < kT) gpax::tile_forward_subst((const T*)smem, Wdj, kT, threadIdx.x);
+    const T* D = L + b * nn + (size_t)jT * n + jT;
+    for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
+      const int r = e / kT, c = e % kT;
+      if (c <= r) smem[gpax::tile_at<T>(r, c)] = D[(size_t)r * n + c];
+    }
+    if (threadIdx.x < kT) inv[threadIdx.x] = T(1) / D[(size_t)threadIdx.x * (n + 1)];
     __syncthreads();
+    if (threadIdx.x < 32) gpax::row_poison((const T*)inv, z, threadIdx.x);
+    gpax::tile_inv_blocked(smem, (const T*)inv);
+    T* Wdj = Wd + (size_t)item * kT * kT;
     T* Dt = Wt + b * nn + (size_t)jT * n + jT;
-    for (int e = threadIdx.x; e < kT * kT; e += kThreads)
-      Dt[(size_t)(e / kT) * n + e % kT] = Wdj[(e % kT) * kT + e / kT];
+    for (int e = threadIdx.x; e < kT * kT; e += kThreads) {
+      const int r = e / kT, c = e % kT;
+      Wdj[e] = gpax::inverse_entry((const T*)smem, (const T*)inv, (const T*)z, r, c);
+      Dt[(size_t)r * n + c] = gpax::inverse_entry((const T*)smem, (const T*)inv, (const T*)z, c, r);
+    }
+    __syncthreads();  // the tile is read to the end before the next item loads
   }
   grid.sync();
+  clock.lap(1);
   for (int j = 1; j < nT; ++j) {
     const int jT = j * kT;
     panel_product(grid, (const T*)Wt, L, (const T*)nullptr, T(1), Wt, part, batch, n, 0,
                   jT / kBM, jT, true, smem);
     grid.sync();
+    clock.lap(0);
     panel_trsm(Wt, (const T*)(Wd + (size_t)j * kT * kT), (size_t)nT * kT * kT, T(-1), batch, n,
                0, jT / kBM, jT, smem);
     grid.sync();
+    clock.lap(2);
   }
 }
 
@@ -433,7 +599,7 @@ int grid_blocks(Kernel kernel, int smem_bytes, int* blocks) {
 // memory
 template <typename T, typename Kernel>
 int launch(Kernel kernel, void** args, int blocks, cudaStream_t stream) {
-  const int bytes = PanelSmem<T>::bytes;
+  const int bytes = Smem<T>::bytes;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -452,8 +618,8 @@ int launch_cholesky(const T* K, T* L, T* Wd, T* part, int batch, int n, int bloc
 
 template <typename T>
 int launch_tri_inv_t(const T* L, T* Wt, T* Wd, T* part, int batch, int n, int blocks,
-                     cudaStream_t stream) {
-  void* args[] = {&L, &Wt, &Wd, &part, &batch, &n};
+                     cudaStream_t stream, unsigned long long* phase_ns) {
+  void* args[] = {&L, &Wt, &Wd, &part, &batch, &n, &phase_ns};
   return launch<T>(panel_tri_inv_t_kernel<T>, args, blocks, stream);
 }
 
@@ -466,17 +632,17 @@ int launch_tri_inv_t(const T* L, T* Wt, T* Wd, T* part, int batch, int n, int bl
 // where the device has no cooperative launch.
 extern "C" int gpax_panel_grid(int kernel, int f64, int* blocks) {
   if (kernel == 0)
-    return f64 ? grid_blocks(panel_cholesky_kernel<double>, PanelSmem<double>::bytes, blocks)
-               : grid_blocks(panel_cholesky_kernel<float>, PanelSmem<float>::bytes, blocks);
-  return f64 ? grid_blocks(panel_tri_inv_t_kernel<double>, PanelSmem<double>::bytes, blocks)
-             : grid_blocks(panel_tri_inv_t_kernel<float>, PanelSmem<float>::bytes, blocks);
+    return f64 ? grid_blocks(panel_cholesky_kernel<double>, Smem<double>::bytes, blocks)
+               : grid_blocks(panel_cholesky_kernel<float>, Smem<float>::bytes, blocks);
+  return f64 ? grid_blocks(panel_tri_inv_t_kernel<double>, Smem<double>::bytes, blocks)
+             : grid_blocks(panel_tri_inv_t_kernel<float>, Smem<float>::bytes, blocks);
 }
 
 // K4. K: contiguous (batch, n, n) SPD, n a multiple of 128; L: zero-filled,
 // the same shape; Wd: (batch, 128, 128) scratch; part: blocks * 64 * 128
 // scratch. Writes the lower Cholesky factor of each K into L. phase_ns: null,
-// or 3 device integers that receive the nanoseconds spent in the products,
-// the diagonal step and the panel TRSM (PhaseClock).
+// or 4 zeroed device integers, the first 3 of which receive the nanoseconds
+// spent in the products, the diagonal step and the panel TRSM (PhaseClock).
 extern "C" int gpax_panel_cholesky_f32(const float* K, float* L, float* Wd, float* part,
                                        int batch, int n, int blocks, cudaStream_t stream,
                                        unsigned long long* phase_ns) {
@@ -492,12 +658,17 @@ extern "C" int gpax_panel_cholesky_f64(const double* K, double* L, double* Wd, d
 // K5. L: contiguous (batch, n, n) lower triangular, n a multiple of 128;
 // Wt: zero-filled, the same shape; Wd: (batch, n / 128, 128, 128) scratch;
 // part as for K4. Writes W^T = L^-T (upper triangular) of each L into Wt.
+// phase_ns: null, or 4 zeroed device integers, the first 3 of which receive
+// the nanoseconds spent in the products, the diagonal tiles' inverses and
+// the panel TRSM.
 extern "C" int gpax_panel_tri_inv_t_f32(const float* L, float* Wt, float* Wd, float* part,
-                                        int batch, int n, int blocks, cudaStream_t stream) {
-  return launch_tri_inv_t(L, Wt, Wd, part, batch, n, blocks, stream);
+                                        int batch, int n, int blocks, cudaStream_t stream,
+                                        unsigned long long* phase_ns) {
+  return launch_tri_inv_t(L, Wt, Wd, part, batch, n, blocks, stream, phase_ns);
 }
 
 extern "C" int gpax_panel_tri_inv_t_f64(const double* L, double* Wt, double* Wd, double* part,
-                                        int batch, int n, int blocks, cudaStream_t stream) {
-  return launch_tri_inv_t(L, Wt, Wd, part, batch, n, blocks, stream);
+                                        int batch, int n, int blocks, cudaStream_t stream,
+                                        unsigned long long* phase_ns) {
+  return launch_tri_inv_t(L, Wt, Wd, part, batch, n, blocks, stream, phase_ns);
 }

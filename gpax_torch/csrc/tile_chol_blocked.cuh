@@ -1,5 +1,6 @@
-// The blocked 128 x 128 tile routine of K3 (cholinv.cu), K2 (trtri.cu) and
-// K4's diagonal step (panel_chol.cu), in the shared memory of one block of
+// The blocked 128 x 128 tile routine of K3 (cholinv.cu), K2 (trtri.cu), K4's
+// diagonal step and K5's diagonal inverses (panel_chol.cu), in the shared
+// memory of one block of
 // 256 threads: tile_chol_blocked factors one SPD tile (L), tile_inv_blocked
 // inverts a lower-triangular one (W = L^-1), tile_chol_inv_blocked does
 // both. They compute what the TPU kernels' row recurrences
@@ -42,14 +43,16 @@
 
 #pragma once
 
-#include "tile_inv.cuh"
-
 namespace gpax {
 
+constexpr int kTile = 128;               // the tile's size
 constexpr int kSub = 16;                 // sub-panel width
 constexpr int kSubs = kTile / kSub;      // sub-panels of a tile
 constexpr int kBlockedThreads = 256;     // the block size the routine expects
 constexpr unsigned kFullWarp = 0xffffffffu;
+
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
 
 __device__ __forceinline__ float ieee_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double ieee_sqrt(double x) { return sqrt(x); }
@@ -443,8 +446,9 @@ __device__ void tile_chol_inv_blocked(T* As, T* inv) {
   tile_inv_blocked(As, (const T*)inv);
 }
 
-// The shared memory of K2's and K3's blocks: the swizzled tile, 1/L_ii and
-// each row's poison (row_poison), kTile elements each after the tile.
+// The shared memory of K2's, K3's, K4's and K5's blocks: the swizzled tile,
+// 1/L_ii and each row's poison (row_poison), kTile elements each after the
+// tile.
 template <typename T>
 struct TileSmem {
   static constexpr int inv = kTile * kTile, poison = inv + kTile;

@@ -29,9 +29,9 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "gpax_torch_kernels"
 SOURCES = ("gram.cu", "trtri.cu", "cholinv.cu", "panel_chol.cu")
-# K5's substitution loop, and the blocked 128-tile routine of K2, K3 and
-# K4's diagonal step
-HEADERS = ("tile_inv.cuh", "tile_chol_blocked.cuh")
+# the blocked 128-tile routine of K2, K3, K4's diagonal step and K5's
+# diagonal inverses
+HEADERS = ("tile_chol_blocked.cuh",)
 # no --use_fast_math: K1's expf/sqrtf must be the accurate ones
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -63,11 +63,9 @@ def _declare(lib) -> None:
         entry.restype = i
     lib.gpax_panel_grid.argtypes = [i, i, ctypes.POINTER(i)]
     lib.gpax_panel_grid.restype = i
-    for entry in (lib.gpax_panel_cholesky_f32, lib.gpax_panel_cholesky_f64):
+    for entry in (lib.gpax_panel_cholesky_f32, lib.gpax_panel_cholesky_f64,
+                  lib.gpax_panel_tri_inv_t_f32, lib.gpax_panel_tri_inv_t_f64):
         entry.argtypes = [p, p, p, p, i, i, i, p, p]  # ..., stream, phase_ns
-        entry.restype = i
-    for entry in (lib.gpax_panel_tri_inv_t_f32, lib.gpax_panel_tri_inv_t_f64):
-        entry.argtypes = [p, p, p, p, i, i, i, p]
         entry.restype = i
 
 

@@ -28,7 +28,7 @@ from . import build
 _SQRT5 = math.sqrt(5.0)
 _KINDS = {"rbf": 0, "matern52": 1}
 
-_MAX_BATCH = 65535  # CUDA's limit on gridDim.z
+_MAX_BATCH = 65535  # matrices a launch: a larger batch goes in slices
 
 launches = 0  # K1 launches in this process (the twin never counts)
 
@@ -93,9 +93,8 @@ def gram_unscaled(Xs: torch.Tensor, Zs: torch.Tensor, noise_eff: torch.Tensor,
         return out
     lib = build.library()
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
-    # the batch is the grid's z dimension, at most _MAX_BATCH blocks: one
-    # launch per slice of that many matrices (the sparse GP's k(x, x)
-    # diagonal is a batch of n 1×1 grams)
+    # one launch per slice of at most _MAX_BATCH matrices (the sparse GP's
+    # k(x, x) diagonal is a batch of n 1×1 grams)
     for b0 in range(0, B, _MAX_BATCH):
         b1 = min(B, b0 + _MAX_BATCH)
         err = lib.gpax_gram_f32(

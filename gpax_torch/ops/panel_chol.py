@@ -65,12 +65,13 @@ def _blocks(kernel: int, A: torch.Tensor) -> int:
     return _grid[key]
 
 
-def _launch(kernel: int, A: torch.Tensor, wd_tiles: int,
+def _launch(kernel: int, A: torch.Tensor,
             phase_ns: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of K4 (kernel 0) or K5 (kernel 1) on A (B, n, n), n a
     multiple of TILE: a zero-filled output, and the scratch it needs (the
-    diagonal tiles' inverses, one partial-sum tile per block). ``phase_ns``
-    (K4 only): 3 int64 on A's device that receive the nanoseconds of K4's
+    diagonal tiles' inverses, one at a time for K4 and all of them for K5;
+    one partial-sum tile per block). ``phase_ns``: 4 zeroed int64 on A's
+    device, the first 3 of which receive the nanoseconds of the kernel's
     phases."""
     global cholesky_launches, tri_inv_launches
     name = ("panel_cholesky", "panel_tri_inv_t")[kernel]
@@ -86,13 +87,12 @@ def _launch(kernel: int, A: torch.Tensor, wd_tiles: int,
     if out.numel() == 0:
         return out
     blocks = _blocks(kernel, A)
-    Wd = A.new_empty((B * wd_tiles, TILE, TILE))
+    Wd = A.new_empty((B * (1 if kernel == 0 else n // TILE), TILE, TILE))
     part = A.new_empty((blocks, _PRODUCT_ROWS, TILE))
-    args = [A.data_ptr(), out.data_ptr(), Wd.data_ptr(), part.data_ptr(), B, n, blocks,
-            torch.cuda.current_stream(A.device).cuda_stream]
-    if kernel == 0:
-        args.append(None if phase_ns is None else phase_ns.data_ptr())
-    err = getattr(build.library(), _ENTRIES[A.dtype][kernel])(*args)
+    err = getattr(build.library(), _ENTRIES[A.dtype][kernel])(
+        A.data_ptr(), out.data_ptr(), Wd.data_ptr(), part.data_ptr(), B, n, blocks,
+        torch.cuda.current_stream(A.device).cuda_stream,
+        None if phase_ns is None else phase_ns.data_ptr())
     build.check(err, name)
     if kernel == 0:
         cholesky_launches += 1
@@ -107,7 +107,7 @@ def panel_cholesky_padded(K: torch.Tensor) -> torch.Tensor:
     twin on a CPU tensor."""
     if K.device.type == "cpu":
         return panel_cholesky_twin(K)
-    return _launch(0, K, 1)
+    return _launch(0, K)
 
 
 def panel_tri_inv_t_padded(L: torch.Tensor) -> torch.Tensor:
@@ -116,7 +116,7 @@ def panel_tri_inv_t_padded(L: torch.Tensor) -> torch.Tensor:
     twin on a CPU tensor."""
     if L.device.type == "cpu":
         return panel_tri_inv_t_twin(L)
-    return _launch(1, L, L.shape[-1] // TILE)
+    return _launch(1, L)
 
 
 def _padded_call(fn, A: torch.Tensor) -> torch.Tensor:
@@ -135,19 +135,33 @@ def panel_cholesky(K: torch.Tensor) -> torch.Tensor:
     return _padded_call(panel_cholesky_padded, K)
 
 
+def _phase_ms(kernel: int, A: torch.Tensor) -> Tuple[float, float, float]:
+    """One launch of K4 (kernel 0) or K5 (kernel 1) on A (…, n, n), padded as
+    the public call pads it and counted like any other, timed by phase on
+    the device's clock: the ms in the products (split-K reduction
+    included), in the diagonal tiles and in the panel TRSM, each read by
+    block 0 after the grid barrier that ends the phase. Raises on a CPU
+    tensor: only the kernel has phases."""
+    name = ("cholesky_phase_ms", "tri_inv_phase_ms")[kernel]
+    if A.device.type != "cuda":
+        raise RuntimeError(f"{name}: the phases are the CUDA kernel's; the matrix must "
+                           "be a CUDA tensor")
+    phase_ns = torch.zeros(4, dtype=torch.int64, device=A.device)
+    _padded_call(lambda P: _launch(kernel, P, phase_ns), A)
+    return tuple(float(t) / 1e6 for t in phase_ns[:3].tolist())
+
+
 def cholesky_phase_ms(K: torch.Tensor) -> Tuple[float, float, float]:
-    """One K4 launch on K (…, n, n), as ``panel_cholesky`` makes it and
-    counted like any other, timed by phase on the device's clock: the ms
-    spent in the Schur-update products (split-K reduction included), in the
-    diagonal tiles' factorization and inversion, and in the panel TRSM, each
-    read by block 0 after the grid barrier that ends the phase. Raises on a
-    CPU tensor: only the kernel has phases."""
-    if K.device.type != "cuda":
-        raise RuntimeError("cholesky_phase_ms: the phases are the CUDA kernel's; "
-                           "K must be a CUDA tensor")
-    phase_ns = torch.zeros(3, dtype=torch.int64, device=K.device)
-    _padded_call(lambda A: _launch(0, A, 1, phase_ns), K)
-    return tuple(float(t) / 1e6 for t in phase_ns.tolist())
+    """K4's phases on K (…, n, n) (:func:`_phase_ms`): the Schur-update
+    products, the diagonal tiles' factorization and inversion, the panel
+    TRSM."""
+    return _phase_ms(0, K)
+
+
+def tri_inv_phase_ms(L: torch.Tensor) -> Tuple[float, float, float]:
+    """K5's phases on lower-triangular L (…, n, n) (:func:`_phase_ms`): the
+    products, the diagonal tiles' inverses, the panel TRSM."""
+    return _phase_ms(1, L)
 
 
 def panel_tri_inv_t(L: torch.Tensor) -> torch.Tensor:

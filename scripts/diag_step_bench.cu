@@ -44,6 +44,20 @@ __device__ __forceinline__ void unblocked_cholesky(T* As, T* lv) {
   }
 }
 
+// The baseline's inverse: forward substitution, one column of W = L^-1 per
+// thread (0 <= j < 128), W[i][j] = (delta_ij - sum_{k<i} L[i][k] W[k][j]) /
+// L[i][i], the Pallas kernels' row recurrence read column by column. Ls is
+// the row-major tile of L in shared memory, Wt the row-major tile of W with
+// row stride ldw.
+template <typename T>
+__device__ __forceinline__ void tile_forward_subst(const T* Ls, T* Wt, size_t ldw, int j) {
+  for (int i = 0; i < kTile; ++i) {
+    T acc = 0;
+    for (int k = 0; k < i; ++k) acc = fma_(Ls[i * kTile + k], Wt[k * ldw + j], acc);
+    Wt[i * ldw + j] = ((i == j ? T(1) : T(0)) - acc) / Ls[i * kTile + i];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256) bench(const T* K, T* L, T* W, long long* cyc, int reps) {
   extern __shared__ __align__(16) unsigned char raw[];

@@ -9,14 +9,17 @@ one JSON line per case, each with the checkout and the card:
 - K4 (single-launch panel Cholesky) and K5 (single-launch panel triangular
   inverse) at n = 4096 in float64 and n = 8192 in float64 and float32: their
   CUDA-event means, K4's error against ``cholesky_ex`` relative to max|L|
-  and K5's against its twin on K4's L relative to max|Wᵀ|, and K4's phase
-  split where the checkout has ``cholesky_phase_ms``;
+  and K5's against its twin on K4's L relative to max|Wᵀ|, and K4's and
+  K5's phase splits where the checkout has ``cholesky_phase_ms`` and
+  ``tri_inv_phase_ms``;
 - K3 (128-tile Cholesky and inverse) on one leaf in float64 at B = 1 and 8
   and in float32 at B = 1, and ``chol_inv`` at m = 1024 in float64;
 - K2 (128-tile triangular inverse) on the 32 diagonal tiles of a float64
   and a float32 factor at n = 4096, and apart the zero fill of the n×n W
   that its wrapper returns;
-- K1 (fused gram) at n = m = 4096, d = 1, RBF.
+- K1 (fused gram) at n = m = 4096, d = 1, RBF; at viGP config 2's
+  2455 × 2455, d = 2, Matérn; and at ``ExactGP.predict``'s batched
+  cross-gram, 32 draws of 1024 × 4096, d = 1, RBF.
 
 Each of K1-K3's lines has its mean and its error against its twin (K3,
 ``chol_inv``: the worse of L and W) relative to the twin's max. Exits
@@ -82,6 +85,8 @@ def panel_cases(head: dict, iters: int) -> bool:
                 "k5_ms": t5, "k4_rel_err": err, "k5_rel_err": err5}
         if hasattr(panel_chol, "cholesky_phase_ms"):
             line["k4_phases_ms"] = panel_chol.cholesky_phase_ms(K)
+        if hasattr(panel_chol, "tri_inv_phase_ms"):
+            line["k5_phases_ms"] = panel_chol.tri_inv_phase_ms(L)
         print(json.dumps(line), flush=True)
         del K, L, L_ref
         torch.cuda.empty_cache()
@@ -120,11 +125,27 @@ def tile_cases(head: dict, iters: int) -> bool:
              0.0, 0.0)
         del L
     g = torch.Generator(device="cuda").manual_seed(1)
-    X = torch.rand((1, 4096, 1), generator=g, device="cuda") * 4.0 - 2.0
-    nz = torch.full((1, 4096), 0.1, device="cuda")
-    err = rel(gram.gram_unscaled(X, X, nz, "rbf", True), gram.gram_twin(X, X, nz, "rbf", True))
-    emit("K1", "n=m=4096 d=1 rbf", torch.float32,
-         cuda_ms(lambda: gram.gram_unscaled(X, X, nz, "rbf", True), 10 * iters), err, K1_TOL)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=g, device="cuda") * 4.0 - 2.0
+
+    for case, kind, Xs, Zs in (
+            ("n=m=4096 d=1 rbf", "rbf", uniform(1, 4096, 1), None),
+            ("config2 2455x2455 d=2 matern52", "matern52",
+             torch.rand((1, 2455, 2), generator=g, device="cuda") * 128 / 12, None),
+            ("predict k_pX B=32 1024x4096 d=1 rbf", "rbf", uniform(32, 1024, 1),
+             uniform(32, 4096, 1))):
+        same = Zs is None
+        Zs = Xs if same else Zs
+        nz = torch.full(Xs.shape[:2], 0.1, device="cuda")
+        err = rel(gram.gram_unscaled(Xs, Zs, nz, kind, same),
+                  gram.gram_twin(Xs, Zs, nz, kind, same))
+        # r²'s rounding grows with the norms (up to ~2·(128/12)² at config 2):
+        # K1_TOL scaled as chip_smoke.py scales it
+        tol = K1_TOL * max(1.0, 2 * (Xs * Xs).sum(-1).max().item() / 60)
+        # a launch takes tens of µs: enough of them that the clock's ramp averages out
+        emit("K1", case, torch.float32,
+             cuda_ms(lambda: gram.gram_unscaled(Xs, Zs, nz, kind, same), 50 * iters), err, tol)
     torch.cuda.empty_cache()
     return bad
 

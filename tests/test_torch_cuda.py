@@ -25,8 +25,13 @@ def dev():
 
 
 @pytest.mark.parametrize("kind", ["rbf", "matern52"])
-@pytest.mark.parametrize("n,m,d,B", [(1000, 1000, 1, 1), (517, 333, 8, 3), (64, 64, 70, 2)])
+@pytest.mark.parametrize("n,m,d,B", [(1000, 1000, 1, 1), (517, 333, 8, 3), (64, 64, 70, 2),
+                                     (300, 301, 1, 1), (300, 302, 2, 2), (299, 299, 3, 1),
+                                     (40, 77, 1, 3), (17, 17, 2, 2), (1, 130, 1, 1)])
 def test_k1_matches_twin(dev, kind, n, m, d, B):
+    """Among the cases: rows that are not 16-byte aligned (m % 4 in {1, 2,
+    3}), which K1 stores element by element, fewer rows than its 64-row
+    tile, a ragged last column group, and d > 32 (several feature chunks)."""
     g = torch.Generator(device=dev).manual_seed(0)
     Xs = torch.randn((B, n, d), generator=g, device=dev) / d**0.5
     same = n == m
@@ -37,6 +42,34 @@ def test_k1_matches_twin(dev, kind, n, m, d, B):
     assert gram.launches == before + 1
     ref = gram.gram_twin(Xs, Zs, nz, kind, same)
     # fp32 r² from norms of a few units: 1e-5 of max|K|
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_k1_config2_matern_gram_matches_twin(dev):
+    """viGP's config-2 gram: 2455 pixel coordinates (m % 4 = 3) in 2-D,
+    Matérn, with noise on the diagonal."""
+    rng = np.random.default_rng(0)
+    coords = np.argwhere(rng.uniform(size=(128, 128)) < 0.15)[:2455].astype(np.float32)
+    Xs = torch.tensor(coords / 12.0, device=dev)[None].contiguous()
+    nz = torch.full((1, Xs.shape[1]), 0.01, device=dev)
+    out = gram.gram_unscaled(Xs, Xs, nz, "matern52", True)
+    ref = gram.gram_twin(Xs, Xs, nz, "matern52", True)
+    # norms up to ~2·(128/12)²: 1e-5 of max|K| scaled as chip_smoke.py's k1_compare
+    norms = 2 * (Xs * Xs).sum(-1).max().item()
+    assert (out - ref).abs().max().item() <= 1e-5 * max(1.0, norms / 60) * ref.abs().max().item()
+
+
+def test_k1_a_batch_of_1x1_grams_over_two_launches(dev):
+    """The sparse GP's k(x, x) diagonal, as a batch of 1×1 grams larger
+    than one launch takes: two launches, within 1e-5 of max|K|."""
+    B = gram._MAX_BATCH + 4465
+    g = torch.Generator(device=dev).manual_seed(2)
+    Xs = torch.rand((B, 1, 1), generator=g, device=dev)
+    nz = torch.rand((B, 1), generator=g, device=dev)
+    before = gram.launches
+    out = gram.gram_unscaled(Xs, Xs, nz, "rbf", True)
+    assert gram.launches == before + 2
+    ref = gram.gram_twin(Xs, Xs, nz, "rbf", True)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
@@ -364,6 +397,59 @@ def test_k4_phase_split(dev, dtype):
     assert panel_chol.cholesky_launches == c4 + 1
     assert len(split) == 3 and all(t >= 0 for t in split)
     assert 0 < sum(split) <= start.elapsed_time(end)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_phase_split(dev, dtype):
+    """Three non-negative phase sums, counted as a launch, whose total is
+    within 10 % of the CUDA-event time of a launch on the same L."""
+    L = torch.linalg.cholesky(_spd_batch(1, 4096, dev, dtype, seed=6)).contiguous()
+    panel_chol.tri_inv_phase_ms(L)  # the build and the first launch
+    c5 = panel_chol.tri_inv_launches
+    split = panel_chol.tri_inv_phase_ms(L)
+    assert panel_chol.tri_inv_launches == c5 + 1
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        panel_chol.panel_tri_inv_t_padded(L)
+    end.record()
+    torch.cuda.synchronize()
+    t = start.elapsed_time(end) / 5
+    assert len(split) == 3 and all(x >= 0 for x in split)
+    assert abs(sum(split) - t) <= 0.1 * t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("q", [0, 15, 16, 63, 64, 127])
+def test_k5_non_finite_rows_from_a_zero_pivot(dev, dtype, q):
+    """A zero pivot at local index q of the second of three diagonal tiles
+    of L (q = 0 a 128-panel border, 15/16 and 63/64 16-column sub-panel
+    borders, 127 the tile's last row): the rows of W = L⁻¹ from the pivot
+    on are non-finite in every column up to the end of the pivot's panel
+    and the rows above it finite, as the Pallas kernel's row recurrence
+    gives them; the twin's rows with a non-finite entry are the same rows."""
+    L = torch.linalg.cholesky(_spd_batch(1, 384, dev, dtype, seed=q))
+    p = 128 + q
+    L[0, p, p] = 0.0
+    W = panel_chol.panel_tri_inv_t(L)[0].mT
+    W_t = panel_chol.panel_tri_inv_t_twin(L)[0].mT
+    assert torch.isfinite(W[:p]).all() and not torch.isfinite(W[p:, :256]).any()
+    assert torch.equal(torch.isfinite(W).all(1), torch.isfinite(W_t).all(1))
+
+
+def test_k5_float32_at_8192_matches_twin(dev):
+    """K5 at the size of its float32 timing: Wᵀ against the twin relative to
+    max|Wᵀ|, and ‖W·L − I‖_max, within chip_smoke.py's tolerance
+    max(1e-4, 2·n·eps·κ), κ = ‖|L|·|W|‖_max."""
+    n = 8192
+    L = torch.linalg.cholesky(_spd_batch(1, n, dev, torch.float32, seed=n))
+    WT = panel_chol.panel_tri_inv_t(L)
+    WT_t = panel_chol.panel_tri_inv_t_twin(L)
+    W = WT.mT
+    kappa = (L[0].abs() @ W[0].abs()).amax().item()
+    tol = max(1e-4, 2 * n * torch.finfo(torch.float32).eps * kappa)
+    assert (WT - WT_t).abs().max().item() <= tol * WT_t.abs().max().item()
+    assert (W[0] @ L[0] - torch.eye(n, device=dev)).abs().max().item() <= tol
 
 
 def test_k4_k5_reject_what_they_do_not_take(dev):

@@ -29,8 +29,13 @@ def _inputs(n, m, d, seed=0):
 
 
 @pytest.mark.parametrize("kind,_", KINDS)
-@pytest.mark.parametrize("n,m,d", [(16, 16, 1), (40, 40, 3), (40, 24, 2)])
+@pytest.mark.parametrize("n,m,d", [(16, 16, 1), (40, 40, 3), (40, 24, 2),
+                                   (13, 13, 1), (22, 22, 2), (27, 27, 2), (12, 9, 3),
+                                   (5, 30, 1), (70, 131, 2)])
 def test_gram_twin_matches_pallas_interpret(kind, _, n, m, d):
+    """Among the cases: widths that are not a multiple of 4 (m % 4 in {1,
+    2, 3}: rows that K1 stores element by element) and n below and above
+    K1's 64-row tile."""
     X, Z, ls = _inputs(n, m, d)
     ref = jgram(X, X if Z is X else Z, ls, np.float32(1.7), np.float32(0.3),
                 kind=kind, jitter=1e-6, interpret=True)

@@ -107,3 +107,10 @@ def test_cholesky_phase_ms_raises_on_a_cpu_tensor():
     """Only the CUDA kernel has phases: no twin stands in for it."""
     with pytest.raises(RuntimeError, match="CUDA"):
         panel_chol.cholesky_phase_ms(torch.tensor(spd(128)))
+
+
+def test_tri_inv_phase_ms_raises_on_a_cpu_tensor():
+    """K5's phases are the CUDA kernel's too: no twin stands in for them."""
+    L = torch.linalg.cholesky(torch.tensor(spd(128)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        panel_chol.tri_inv_phase_ms(L)
