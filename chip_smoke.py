@@ -73,7 +73,33 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     grid in batches of 1024) on the route "auto" takes, counting K1 and K2
     launches, then holds K1 and K2 against their twins on the fitted
     model's own grams and float64 factors;
-13. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
+13. drives Bayesian optimization on the composed n = 4096 fit of step 8:
+    ``EI``, ``UCB``, ``POI`` and ``UE`` over its 100 draws at the 2048
+    prediction points (``predict_moments``), ``qEI`` and ``qUCB`` (4 draws
+    a subset, ``maximize_distance``), then ``optimize_acq(UCB)`` on the box
+    of X, counting K1 and K2 launches and printing points/s of each; holds
+    ``EI`` and ``UCB`` on the card against the same port call on the CPU
+    (``device="cpu"``) on 4 draws and 256 points, and ``ei`` on EI's own
+    moments against EI's float64 closed form;
+14. drives BASELINE config 4 (bench.py:471-600's data: 320 low- and 64
+    high-fidelity points, ``MultiTaskGP(1, "Matern", num_latents=1,
+    num_tasks=2)``) with bench.py's fit settings (``segment_size`` 50,
+    depth 8, ``warmup_depth_cap`` (5, 20), target accept 0.7, a
+    ``segment_callback`` and a far ``deadline``) but 200 + 200 draws
+    instead of 1000 + 4000 (the cut: the port's NUTS is driven from the
+    host), checks the callback stream, the leapfrog count, accept,
+    divergences and task 1's RMSE against f_hi, then runs ``EI`` on the
+    101-point grid at task 1 (``ei`` held against its float64 closed form
+    as in step 13) and ``KG`` on 8 of its points, then holds K1 and K2
+    against their twins on the fitted model's own grams and float64
+    factors: one draw's fit gram, every draw's predictive grams (the
+    latent axis in the gram's batch dim) and one draw's KG fantasy grams
+    (8 candidate sets of 385 points, whose factors K2 gets padded to 512);
+15. fits that MultiTaskGP once more with a deadline already past: one chain
+    (20 + 40, segments of 10, ``warmup_depth_cap`` (1, 20)) must freeze at
+    10 warmup steps and return 10 finite draws whose trees exceed the cap,
+    and two sequential chains must warn and run their whole plan;
+16. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -89,11 +115,13 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import gpax_torch
+from gpax_torch import acquisition as acq
 from gpax_torch.ops import build, chol, gram, linalg, panel_chol
 from gpax_torch.ppl import initialize_model, log_density
 from gpax_torch.utils import get_keys, host_syncs, preprocess_sparse_image, reset_host_syncs
@@ -148,6 +176,33 @@ SPARSE_NOISE_RANGE = (0.00125, 0.005)  # the JAX package on the CPU: 0.00251
 VIGP_SIZE, VIGP_STEPS, VIGP_STEP_SIZE, VIGP_BATCH = 128, 250, 0.05, 1024
 VIGP_N = 2455                     # observed pixels of config 2's image
 VIGP_RMSE_MAX = 0.01              # the JAX package on the CPU: 0.00136
+
+# Bayesian optimization on the n = 4096 fit: q-function subsets, the
+# optimizer's multi-start and steps, and the card-vs-CPU check's size
+BO_SUBSAMPLE, BO_STARTS, BO_STEPS = 4, 64, 10
+BO_CHECK_DRAWS, BO_CHECK_POINTS = 4, 256
+# the card's EI and UCB against the same port call on the CPU: both sides
+# solve with float32 grams that agree to ~1e-7 relative (K1 and its twin)
+# and float64 factors; cond(K) up to n·k_scale/noise ~ 4e5 at this fit
+# amplifies that into the predictive moments, so the tolerance is relative
+# to the largest value of the acquisition
+BO_CHECK_TOL = 1e-2
+# BASELINE config 4 (bench.py:471-600), cut from 1000 + 4000 draws to
+# 200 + 200: the port's NUTS is driven from the host
+MT_WARMUP, MT_SAMPLES, MT_SEGMENT = 200, 200, 50
+MT_DEPTH, MT_DEPTH_CAP, MT_TARGET = 8, (5, 20), 0.7
+MT_GRID = 101
+MT_KG_POINTS, MT_KG_FANTASIES = 8, 4
+MT_RMSE_MAX = 0.03  # the JAX package on the CPU (reference/config4_jax.py): 0.01566
+MT_N_LO, MT_N_HI = 320, 64
+# EI against its float64 closed form on the same moments: values above
+# EI_REF_FLOOR·max(EI) within EI_RTOL (float32's exp(-u²/2) loses ~u²·eps
+# relative, ~5e-4 at u = -9), and none below -1e-30 (float32 subnormals)
+EI_RTOL, EI_REF_FLOOR = 1e-3, 1e-20
+# the freeze: 20 + 40 draws in segments of 10, the head capped at depth 1,
+# trees of at most 2^6 - 1 leapfrogs (tests/test_round5.py's depth)
+FREEZE_WARMUP, FREEZE_SAMPLES, FREEZE_SEGMENT, FREEZE_CAP = 20, 40, 10, (1, 20)
+FREEZE_DEPTH = 6
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
 # bytes/s, and the highest FLOP/s the card offers for each dtype without a
@@ -238,7 +293,7 @@ def device_phase() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"device: {name} | torch {torch.__version__} cuda {torch.version.cuda} "
+    print(f"device: {name} | {smi} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| python {sys.version.split()[0]}", flush=True)
     return smi
 
@@ -1167,35 +1222,341 @@ def vigp_path():
     return {"fit": fit_launch, "predict": pred_launch}, model, full_grid[:VIGP_BATCH]
 
 
+def f_hi(x):
+    return np.sin(5 * x) * np.exp(-x)
+
+
+def config4_data():
+    """bench.py:471-600's data: 320 low- and 64 high-fidelity points on
+    [0, 2], f_hi = sin(5x)·e^(−x), f_lo = 0.8·f_hi + 0.2·cos(3x), noise sd
+    0.05, the task index in the last column; float32."""
+    rng = np.random.default_rng(0)
+    x_lo, x_hi = rng.uniform(0, 2, MT_N_LO), rng.uniform(0, 2, MT_N_HI)
+    X = np.concatenate([np.column_stack([x_lo, np.zeros(MT_N_LO)]),
+                        np.column_stack([x_hi, np.ones(MT_N_HI)])])
+    y = np.concatenate([0.8 * f_hi(x_lo) + 0.2 * np.cos(3 * x_lo), f_hi(x_hi)])
+    y = y + 0.05 * rng.normal(size=MT_N_LO + MT_N_HI)
+    return X.astype(np.float32), y.astype(np.float32)
+
+
+def check_ei(label: str, values: torch.Tensor, moments, maximize: bool) -> None:
+    """EI's values are ≥ -1e-30, and ``ei`` on the moments EI scored (mean,
+    variance) agrees with σ(φ(u) + u·Φ(u)) in float64, Φ by erfc, where that
+    exceeds EI_REF_FLOOR·max: a wrong lower tail of ``Normal.cdf`` shows as
+    a relative error far above EI_RTOL (the float32 ndtr, 4 % off at u = -5,
+    gives ~30) or as negative values."""
+    mean, var = moments
+    got = acq.ei(moments, maximize=maximize).double()
+    m64, sd = mean.double(), var.double().sqrt()
+    u = (m64 - (m64.max() if maximize else m64.min())) / sd
+    u = u if maximize else -u
+    ref = sd * (torch.exp(-u * u / 2) / np.sqrt(2 * np.pi)
+                + u * 0.5 * torch.special.erfc(-u / np.sqrt(2)))
+    big = ref > EI_REF_FLOOR * ref.max()
+    rel = ((got - ref).abs() / ref)[big].max().item()
+    low = values.min().item()
+    print(f"{label} EI: min {low:.3e}; ei vs float64 closed form on {int(big.sum())} of "
+          f"{ref.numel()} points: max rel err {rel:.3e} (tol {EI_RTOL:.0e})", flush=True)
+    if not (low >= -1e-30 and rel <= EI_RTOL):
+        fail(f"{label}: EI below -1e-30 or off its float64 closed form")
+
+
+def k2_compare_calls(label: str, calls, sizes) -> None:
+    """K2 against its twin on each captured factor of ``tile_tri_inv``, with
+    ExactGP's predict tolerances (see check_main_shapes); where the factor's
+    own size n (the largest of ``sizes`` that fits) is no multiple of 128,
+    so that it came padded, also ``blocked_trtri`` on the unpadded n×n
+    factor, which pads it again and launches K2, against the twin's inverse
+    of the padded one."""
+    for i, (L,) in enumerate(calls):
+        B, n_pad = L.shape[0], L.shape[-1]
+        n = max(k for k in sizes if k <= n_pad)
+        if L.dtype != torch.float64:
+            fail(f"{label}: factor {i} is {L.dtype}, not float64")
+        k2_compare(f"{label} float64 factor {i} B={B} n={n_pad}", L, chol.blocked_trtri(L),
+                   1e-7, 1e-6)
+        if n_pad == n:
+            continue
+        Ln = L[:, :n, :n].contiguous()
+        W = chol.blocked_trtri(Ln)
+        W_twin = twin_trtri(L)[:, :n, :n]
+        rel = (W - W_twin).abs().max().item() / W_twin.abs().max().item()
+        resid = (W @ Ln - torch.eye(n, device=L.device, dtype=L.dtype)).abs().max().item()
+        print(f"K2 {label} factor {i} unpadded n={n} (padded to {n_pad} by blocked_trtri): "
+              f"rel={rel:.3e} (tol 1e-07) |WL-I|max={resid:.3e} (tol 1e-06)", flush=True)
+        if not (rel <= 1e-7 and resid <= 1e-6):
+            fail(f"K2 check failed at {label} factor {i}, n={n} padded")
+
+
+def check_config4_shapes(model, X_test: torch.Tensor, X_kg: torch.Tensor, key) -> None:
+    """K1 and K2 against their twins on the fitted MultiTaskGP's own inputs:
+    the grams and float64 factors of one draw's log density (the fit's),
+    of ``get_mvn_posterior`` on the grid for one chunk of draws (all of
+    them unless memory forces less; draws × latents in the gram's batch
+    dim), and of ``kg`` for one draw on the KG points (the posterior on
+    the 8 candidates, then the 8 fantasy training sets of N + 1 = 385
+    points each)."""
+    X, y = model.X_train, model.y_train
+    N = X.shape[0]
+    s = model.get_samples()
+    chunk = model._chunk_size(MT_SAMPLES, X_test.shape[0], True)
+    draw = {k: v[0] for k, v in s.items()}
+    cases = (
+        ("fit", (N,), lambda: log_density(model.model, (X, y), {}, draw)),
+        (f"predict B={chunk}", (N,), lambda: model.get_mvn_posterior(
+            X_test, {k: v[:chunk] for k, v in s.items()}, noiseless=True)),
+        ("KG", (N, N + 1), lambda: acq.base_acq.kg(
+            model, X_kg, draw, acq.base_acq.key_on(key, X.device), MT_KG_FANTASIES, False,
+            False)),
+    )
+    for label, sizes, fn in cases:
+        with torch.no_grad(), captured(gram, "gram_unscaled") as grams, \
+                captured(chol, "tile_tri_inv") as factors:
+            fn()
+        k1_compare_calls(f"MultiTaskGP config4 {label}", grams)
+        del grams
+        k2_compare_calls(f"MultiTaskGP config4 {label}", factors, sizes)
+        del factors
+    torch.cuda.empty_cache()
+
+
+def timed(fn):
+    """(fn(), its wall seconds ending at a synchronize, the K1-K5 launches it made)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, counts()
+
+
+def bo_path(gp) -> dict:
+    """Bayesian optimization on the composed n = 4096 fit: each acquisition
+    over the 2048 prediction points on the card, with its K1/K2 launches and
+    points/s; then EI and UCB on the card against the CPU."""
+    dev = gp.X_train.device
+    X_new = torch.linspace(-2, 2, PREDICT_M, device=dev)[:, None]
+    key = 11
+    launched, summary = {}, {}
+    runs = {
+        "EI": lambda: acq.EI(key, gp, X_new),
+        "UCB": lambda: acq.UCB(key, gp, X_new),
+        "POI": lambda: acq.POI(key, gp, X_new),
+        "UE": lambda: acq.UE(key, gp, X_new),
+        "qEI": lambda: acq.qEI(key, gp, X_new, subsample_size=BO_SUBSAMPLE,
+                               maximize_distance=True),
+        "qUCB": lambda: acq.qUCB(key, gp, X_new, subsample_size=BO_SUBSAMPLE,
+                                 maximize_distance=True),
+    }
+    values = {}
+    for name, fn in runs.items():
+        values[name], secs, launched[name] = timed(fn)
+        v = values[name]
+        shape = (BO_SUBSAMPLE, PREDICT_M) if name.startswith("q") else (PREDICT_M,)
+        if not (tuple(v.shape) == shape and v.device == dev and bool(torch.isfinite(v).all())):
+            fail(f"ExactGP BO {name}: shape {tuple(v.shape)} on {v.device} or non-finite")
+        summary[name] = {"s": secs, "points_per_s": PREDICT_M / secs,
+                         "argmax_x": X_new[int(v.reshape(-1, PREDICT_M)[0].argmax()), 0].item()}
+    check_ei("ExactGP BO", values["EI"],
+             acq.acquisition._compute_mean_and_var(key, gp, X_new, 1, False, device=dev), False)
+    lo, hi = gp.X_train.min(0).values, gp.X_train.max(0).values
+    x_opt, secs, launched["optimize_acq"] = timed(lambda: acq.optimize_acq(
+        key, gp, acq.UCB, BO_STARTS, lo, hi, num_steps=BO_STEPS))
+    summary["optimize_acq"] = {"s": secs, "x": x_opt.tolist(), "starts": BO_STARTS,
+                               "steps": BO_STEPS}
+    if not (x_opt.shape == (1,) and bool(((x_opt >= lo) & (x_opt <= hi)).all())):
+        fail(f"optimize_acq's point {x_opt.tolist()} is not in the box [{lo.item()}, {hi.item()}]")
+    print("ExactGP BO n=4096, 100 draws, 2048 points: " + json.dumps(summary), flush=True)
+    require_launches("ExactGP BO", launched, ("gram", "trtri"))
+
+    # the card against the CPU: the same port call on BO_CHECK_DRAWS draws
+    # and BO_CHECK_POINTS points
+    draws = {k: v[:BO_CHECK_DRAWS] for k, v in gp.get_samples().items()}
+    X_chk = X_new[:BO_CHECK_POINTS]
+    for name in ("EI", "UCB"):
+        fn = getattr(acq, name)
+        card = fn(key, gp, X_chk, samples=draws, device=dev).cpu()
+        host = fn(key, gp, X_chk.cpu(), samples=draws, device="cpu")
+        err = (card - host).abs().max().item()
+        scale = host.abs().max().item()
+        print(f"ExactGP BO {name} card vs CPU, {BO_CHECK_DRAWS} draws x {BO_CHECK_POINTS} "
+              f"points: max|err| {err:.3e}, max|cpu| {scale:.3e} (tol {BO_CHECK_TOL:.0e} "
+              f"relative)", flush=True)
+        if not err <= BO_CHECK_TOL * scale:
+            fail(f"ExactGP BO {name} on the card disagrees with the CPU")
+    gp._to_device(dev)
+    return launched
+
+
+def config4_path() -> dict:
+    """BASELINE config 4 with bench.py's fit settings and 200 + 200 draws:
+    the fit, task 1's posterior mean on the grid, EI there and KG on 8
+    of its points."""
+    X, y = config4_data()
+    k_fit, k_pred = get_keys(0)
+    model = gpax_torch.MultiTaskGP(1, "Matern", num_latents=1, num_tasks=2)
+    calls = []
+    reset_host_syncs()
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        k_fit, X, y, num_warmup=MT_WARMUP, num_samples=MT_SAMPLES, segment_size=MT_SEGMENT,
+        max_tree_depth=MT_DEPTH, warmup_depth_cap=MT_DEPTH_CAP, target_accept_prob=MT_TARGET,
+        segment_callback=calls.append, deadline=time.perf_counter() + 3600.0,
+        print_summary=False, progress_bar=False))
+    syncs = host_syncs()
+    stats = model.mcmc.get_extra_fields()
+    leapfrogs = model.mcmc.num_leapfrogs
+    accept = stats["accept_prob"].mean().item()
+    divergences = int(stats["diverging"].sum())
+    samples = model.get_samples()
+
+    grid = np.linspace(0, 2, MT_GRID)
+    X_test = np.column_stack([grid, np.ones_like(grid)]).astype(np.float32)
+    (mean, _), pred_s, pred_launch = timed(lambda: model.predict(k_pred, X_test,
+                                                                  noiseless=True))
+    rmse = float(np.sqrt(np.mean((mean.cpu().numpy() - f_hi(grid)) ** 2)))
+    ei, ei_s, ei_launch = timed(lambda: acq.EI(k_pred, model, X_test, maximize=True,
+                                               noiseless=True))
+    X_kg = X_test[::MT_GRID // MT_KG_POINTS][:MT_KG_POINTS]
+    kg, kg_s, kg_launch = timed(lambda: acq.KG(k_pred, model, X_kg, n=MT_KG_FANTASIES))
+    summary = {
+        "n": len(y), "num_warmup": MT_WARMUP, "num_samples": MT_SAMPLES,
+        "segment_size": MT_SEGMENT, "max_tree_depth": MT_DEPTH, "fit_s": fit_s,
+        "leapfrogs": leapfrogs, "leapfrogs_per_s": leapfrogs / fit_s,
+        "ms_per_leapfrog": 1e3 * fit_s / max(leapfrogs, 1),
+        "host_syncs_per_leapfrog": syncs / max(leapfrogs, 1),
+        "segment_wall_s": stats["segment_wall_s"].tolist(),
+        "segment_leapfrogs": stats["segment_leapfrogs"].tolist(),
+        "accept_mean": accept, "accept_mean_all": stats["accept_mean_all"].item(),
+        "divergences": divergences, "rmse_task1": rmse, "rmse_max": MT_RMSE_MAX,
+        "predict_s": pred_s, "ei_s": ei_s, "ei_points_per_s": MT_GRID / ei_s,
+        "next_x": float(grid[int(ei.argmax())]), "kg_s": kg_s,
+        "kg_points_per_s": MT_KG_POINTS / kg_s,
+        "posterior_mean": {k: v.float().mean(0).flatten().tolist() for k, v in samples.items()},
+        "launches": {"fit": fit_launch, "predict": pred_launch, "EI": ei_launch,
+                     "KG": kg_launch},
+    }
+    print("MultiTaskGP config4: " + json.dumps(summary), flush=True)
+    if len(calls) != -(-(MT_WARMUP + MT_SAMPLES) // MT_SEGMENT) or \
+            calls[-1]["steps_done"] != MT_WARMUP + MT_SAMPLES:
+        fail(f"config4: {len(calls)} callbacks, last at {calls[-1]['steps_done']} steps")
+    if sum(calls[-1]["segment_leapfrogs"]) != leapfrogs or \
+            int(stats["segment_leapfrogs"].sum()) != leapfrogs:
+        fail("config4: segment_leapfrogs does not sum to the leapfrogs run")
+    if not all(bool(torch.isfinite(v).all()) for v in samples.values()):
+        fail("config4: non-finite posterior samples")
+    if not 0.5 <= accept <= 0.99:
+        fail(f"config4: mean accept {accept} outside [0.5, 0.99]")
+    if divergences > 0.05 * MT_SAMPLES:
+        fail(f"config4: {divergences} divergences in {MT_SAMPLES} draws")
+    if not rmse <= MT_RMSE_MAX:
+        fail(f"config4: task 1 RMSE {rmse} > {MT_RMSE_MAX}")
+    if not (ei.shape == (MT_GRID,) and bool(torch.isfinite(ei).all())):
+        fail("config4: EI is not finite on the grid")
+    X_test = torch.as_tensor(X_test, device=model.X_train.device)
+    check_ei("config4", ei, acq.acquisition._compute_mean_and_var(
+        k_pred, model, X_test, 1, True, device=X_test.device), True)
+    if not (kg.shape == (MT_SAMPLES, MT_KG_POINTS) and bool(torch.isfinite(kg).all())):
+        fail(f"config4: KG shape {tuple(kg.shape)} or non-finite")
+    launched = {"fit": fit_launch, "predict": pred_launch, "EI": ei_launch, "KG": kg_launch}
+    require_launches("MultiTaskGP config4", launched, ("gram", "trtri"))
+    return launched, model, X_test, X_test[::MT_GRID // MT_KG_POINTS][:MT_KG_POINTS], k_pred
+
+
+def freeze_path() -> dict:
+    """The deadline freeze on the card: a deadline already past."""
+    X, y = config4_data()
+    kw = dict(num_warmup=FREEZE_WARMUP, num_samples=FREEZE_SAMPLES,
+              segment_size=FREEZE_SEGMENT, max_tree_depth=FREEZE_DEPTH,
+              warmup_depth_cap=FREEZE_CAP, target_accept_prob=MT_TARGET,
+              print_summary=False, progress_bar=False)
+    one = gpax_torch.MultiTaskGP(1, "Matern", num_latents=1, num_tasks=2)
+    _, one_s, one_launch = timed(lambda: one.fit(0, X, y, deadline=time.perf_counter() - 1.0,
+                                                 **kw))
+    st = one.mcmc.get_extra_fields()
+    noise = one.get_samples()["noise"]
+    steps = st["num_steps"]
+    two = gpax_torch.MultiTaskGP(1, "Matern", num_latents=1, num_tasks=2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, two_s, two_launch = timed(lambda: two.fit(
+            0, X, y, num_chains=2, deadline=time.perf_counter() - 1.0, **kw))
+    st2 = two.mcmc.get_extra_fields(group_by_chain=True)
+    warned = any("not threaded" in str(w.message) for w in caught)
+    summary = {"one_chain": {"s": one_s, "warmup_steps_run": int(st["warmup_steps_run"][0]),
+                             "draws": int(noise.shape[0]), "num_steps": steps.tolist()},
+               "two_chains": {"s": two_s, "warned": warned,
+                              "warmup_steps_run": st2["warmup_steps_run"].tolist(),
+                              "draws": list(two.get_samples(chain_dim=True)["noise"].shape[:2])}}
+    print("MultiTaskGP freeze: " + json.dumps(summary), flush=True)
+    if not (int(st["warmup_steps_run"][0]) == FREEZE_SEGMENT and noise.shape[0] == FREEZE_SEGMENT
+            and bool(torch.isfinite(noise).all())):
+        fail("freeze: the one-chain fit did not freeze at the first boundary with 10 draws")
+    if not int(steps.max()) > 1:
+        fail("freeze: the depth cap leaked into the post-freeze draws")
+    if not (warned and st2["warmup_steps_run"].tolist() == [FREEZE_WARMUP] * 2
+            and summary["two_chains"]["draws"] == [2, FREEZE_SAMPLES]):
+        fail("freeze: the sequential chains did not warn and run their whole plan")
+    launched = {"one chain": one_launch, "two chains": two_launch}
+    require_launches("MultiTaskGP freeze", launched, ("gram", "trtri"))
+    return launched
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Print the wall time of the block."""
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s wall", flush=True)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     smi = device_phase()
     dev = torch.device("cuda", 0)
-    build_phase()
-    k1 = check_k1(dev)
-    k2 = check_k2(dev)
-    k3 = check_k3(dev)
-    k45_err = check_panel(dev)
-    check_potential(dev)
-    fused_crossover(dev)
-    auto_routes(dev)
+    with phase("build"):
+        build_phase()
+    with phase("K1-K5 against their twins"):
+        k1 = check_k1(dev)
+        k2 = check_k2(dev)
+        k3 = check_k3(dev)
+        k45_err = check_panel(dev)
+    with phase("ExactGP potential and routes"):
+        check_potential(dev)
+        fused_crossover(dev)
+        auto_routes(dev)
     paths = {}
-    paths["ExactGP"], gp, chunk = main_path(dev, "never")
-    check_main_shapes(gp, chunk)
-    paths["ExactGP panel factors"], panel_err, k45 = panel_path(gp)
+    with phase("ExactGP composed fit and predict"):
+        paths["ExactGP"], gp, chunk = main_path(dev, "never")
+        check_main_shapes(gp, chunk)
+    with phase("ExactGP BO"):
+        paths["ExactGP BO"] = bo_path(gp)
+    with phase("K4/K5 on the fit's gram"):
+        paths["ExactGP panel factors"], panel_err, k45 = panel_path(gp)
     composed = gp.get_samples()
     del gp
     torch.cuda.empty_cache()
-    paths["ExactGP fused"], gp, _ = main_path(dev, "always")
-    check_fused_posterior(composed, gp.get_samples())
+    with phase("ExactGP fused fit and predict"):
+        paths["ExactGP fused"], gp, _ = main_path(dev, "always")
+        check_fused_posterior(composed, gp.get_samples())
     del gp, composed
     torch.cuda.empty_cache()
     for label, n, steps in SPARSE_PHASES:
-        paths[f"viSparseGP {label}"], model = sparse_path(label, n, steps)
-        check_sparse_shapes(label, model)
+        with phase(f"viSparseGP {label}"):
+            paths[f"viSparseGP {label}"], model = sparse_path(label, n, steps)
+            check_sparse_shapes(label, model)
         del model
         torch.cuda.empty_cache()
-    paths["viGP config2"], model, X_new = vigp_path()
-    check_vigp_shapes(model, X_new)
+    with phase("viGP config2"):
+        paths["viGP config2"], model, X_new = vigp_path()
+        check_vigp_shapes(model, X_new)
+    del model
+    torch.cuda.empty_cache()
+    with phase("MultiTaskGP config4"):
+        paths["MultiTaskGP config4"], model, X_test, X_kg, key = config4_path()
+        check_config4_shapes(model, X_test, X_kg, key)
+    del model
+    torch.cuda.empty_cache()
+    with phase("MultiTaskGP freeze"):
+        paths["MultiTaskGP freeze"] = freeze_path()
 
     def launches(k):
         by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}
@@ -1216,6 +1577,7 @@ def main() -> None:
          "replaces": "scripts/panel_chol.py:170", **launches("panel_tri_inv"),
          "max_abs_err": float(panel_err[1]), **k45["k5"]},
     ]
+    print(f"whole run: {time.perf_counter() - t_start:.2f} s wall", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

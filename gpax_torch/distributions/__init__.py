@@ -2,6 +2,7 @@ from . import constraints
 from .distributions import (
     Distribution,
     HalfNormal,
+    Independent,
     LogNormal,
     LowRankMultivariateNormal,
     MultivariateNormal,
@@ -19,6 +20,7 @@ __all__ = [
     "Normal",
     "LogNormal",
     "HalfNormal",
+    "Independent",
     "MultivariateNormal",
     "LowRankMultivariateNormal",
 ]

@@ -59,6 +59,9 @@ class Distribution:
     def log_prob(self, value):
         raise NotImplementedError
 
+    def to_event(self, n: int = 1) -> "Independent":
+        return Independent(self, n)
+
     @property
     def mean(self):
         raise NotImplementedError
@@ -83,6 +86,14 @@ class Normal(Distribution):
     def log_prob(self, value):
         z = (value - self.loc) / self.scale
         return -0.5 * z * z - torch.log(self.scale) - 0.5 * _LOG_2PI
+
+    def cdf(self, value):
+        # erfc, not ndtr: torch's float32 ndtr loses the lower tail (4 %
+        # off at -5, 0 at -6), which JAX's norm.cdf keeps
+        return 0.5 * torch.special.erfc((self.loc - value) / (self.scale * math.sqrt(2.0)))
+
+    def icdf(self, q):
+        return self.loc + self.scale * torch.special.ndtri(q)
 
     @property
     def mean(self):
@@ -260,3 +271,28 @@ class LowRankMultivariateNormal(Distribution):
     @property
     def variance(self):
         return (self.cov_factor**2).sum(-1) + self.cov_diag
+
+
+class Independent(Distribution):
+    """Reinterprets the rightmost ``n`` batch dims of ``base`` as event dims
+    (``distributions.py:324-351``)."""
+
+    def __init__(self, base: Distribution, reinterpreted_batch_ndims: int = 1):
+        self.base = base
+        self.reinterpreted_batch_ndims = n = reinterpreted_batch_ndims
+        cut = len(base.batch_shape) - n
+        self.batch_shape = tuple(base.batch_shape[:cut])
+        self.event_shape = tuple(base.batch_shape[cut:]) + tuple(base.event_shape)
+        self.support = base.support
+
+    def sample(self, key, sample_shape=()):
+        return self.base.sample(key, sample_shape)
+
+    def log_prob(self, value):
+        lp = self.base.log_prob(value)
+        return lp.sum(tuple(range(-self.reinterpreted_batch_ndims, 0))) \
+            if self.reinterpreted_batch_ndims else lp
+
+    @property
+    def mean(self):
+        return self.base.mean

@@ -2,12 +2,14 @@
 ``MCMC(NUTS(model), num_warmup, num_samples).run(key, *args)`` then
 ``get_samples()``. Chains run one after another on the data's device.
 
-The JAX package's segmented runner (``segment_size``) and its vectorized
-and parallel chain methods belong to later slices; asking for them raises
-``NotImplementedError``. Its ``segment_callback``, ``deadline`` and
-``warmup_depth_cap`` options only act on the segmented runner: on this
-non-segmented run they are ignored with a ``UserWarning``, as in the JAX
-package.
+``segment_size`` runs each chain in segments (``nuts.run_nuts_segmented``).
+The options ``segment_callback``, ``deadline`` and ``warmup_depth_cap`` act
+on a segmented single-chain run; as in the JAX package, a non-segmented
+run ignores them with a ``UserWarning``, and so does a segmented run of
+several sequential chains. One chain runs whatever the ``chain_method``,
+as in the JAX package; several chains under "vectorized" or "parallel"
+need the JAX package's lockstep runner, which is not ported, and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..ppl import initialize_model, seed, substitute
 from ..ppl import trace as ppl_trace
 from ..utils.utils import spawn
 from . import diagnostics
-from .nuts import NUTS, ravel, run_nuts
+from .nuts import _SEGMENT_STATS, NUTS, ravel, run_nuts_segmented
 
 
 def _device_of(args, kwargs) -> torch.device:
@@ -37,17 +39,19 @@ class MCMC:
                  num_chains: int = 1, chain_method: str = "sequential",
                  progress_bar: bool = False, jit_model_args: bool = False,
                  segment_size: Optional[int] = None):
-        if segment_size is not None:
-            raise NotImplementedError("segment_size: the segmented runner is not ported")
-        if chain_method != "sequential":
+        if chain_method not in ("sequential", "vectorized", "parallel"):
+            raise ValueError(f"unknown chain_method {chain_method!r}")
+        if num_chains > 1 and chain_method != "sequential":
             raise NotImplementedError(
-                f"chain_method={chain_method!r}: only 'sequential' is ported")
+                f"chain_method={chain_method!r} with {num_chains} chains: the lockstep "
+                "multi-chain runner is not ported; use 'sequential'")
         self.kernel = kernel
         self.num_warmup = num_warmup
         self.num_samples = num_samples
         self.num_chains = num_chains
         self.chain_method = chain_method
-        self.progress_bar = progress_bar  # accepted for API parity
+        self.progress_bar = progress_bar  # prints segments on a segmented run
+        self.segment_size = segment_size
         self.segment_callback = None
         self.deadline = None
         self.warmup_depth_cap = None
@@ -59,10 +63,15 @@ class MCMC:
     def run(self, rng_key, *model_args, extra_fields=(), init_params=None, **model_kwargs):
         ignored = [n for n in ("segment_callback", "deadline", "warmup_depth_cap")
                    if getattr(self, n) is not None]
-        if ignored:
+        if ignored and not self.segment_size:
             warnings.warn(
                 f"{', '.join(ignored)} require segment_size (the segmented "
                 "runner paths); ignored on this non-segmented run", stacklevel=2)
+        elif ignored and self.num_chains > 1:
+            warnings.warn(
+                "segment_callback/deadline/warmup_depth_cap are not threaded "
+                "through chain_method='sequential'; ignored on this run of "
+                f"{self.num_chains} chains", stacklevel=2)
         if isinstance(rng_key, int):
             rng_key = torch.Generator().manual_seed(rng_key)
         model = self.kernel.model
@@ -81,6 +90,12 @@ class MCMC:
         self.timing["initialize_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
+        single = self.num_chains == 1
+        # the window options reach the runner of a segmented single chain only
+        window = ({"segment_callback": self.segment_callback, "deadline": self.deadline,
+                   "warmup_depth_cap": self.warmup_depth_cap}
+                  if single and self.segment_size else {})
+        total = self.num_warmup + self.num_samples
         zs, stats, leapfrogs = [], [], 0
         for c in range(self.num_chains):
             key = spawn(rng_key, device)
@@ -88,16 +103,23 @@ class MCMC:
             if c > 0:  # chain 0 keeps the median init; the others are jittered
                 flat = flat + 2.0 * torch.rand(flat.shape, generator=key, dtype=flat.dtype,
                                                device=device) - 1.0
-            z, st, _ = run_nuts(
+            z, st, _ = run_nuts_segmented(
                 info.potential_fn, unravel(flat), key,
                 num_warmup=self.num_warmup, num_samples=self.num_samples,
+                segment_size=self.segment_size or max(total, 1),
                 max_tree_depth=self.kernel.max_tree_depth,
                 target_accept_prob=self.kernel.target_accept_prob,
-                init_step_size=self.kernel.step_size, collect_warmup=True,
-                dense_mass=self.kernel.dense_mass)
-            leapfrogs += int(st["num_steps"].sum())
-            zs.append(z[self.num_warmup:])
-            stats.append({k: v[self.num_warmup:].cpu() for k, v in st.items()})
+                init_step_size=self.kernel.step_size, dense_mass=self.kernel.dense_mass,
+                progress=self.progress_bar and bool(self.segment_size), **window)
+            leapfrogs += int(st["segment_leapfrogs"].sum())
+            # the stats a run keeps, as in the JAX package: all on a segmented
+            # single chain, none of the segment ones without segments, and
+            # all but the per-segment lists on sequential segmented chains
+            drop = (() if single and self.segment_size
+                    else ("segment_wall_s", "segment_leapfrogs") if self.segment_size
+                    else _SEGMENT_STATS)
+            zs.append(z)
+            stats.append({k: v.cpu() for k, v in st.items() if k not in drop})
         zs = torch.stack(zs)  # (chains, draws, dim)
         sync()
         self.timing["sample_s"] = time.perf_counter() - t0

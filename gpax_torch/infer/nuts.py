@@ -16,14 +16,21 @@ The algorithm is the JAX package's:
 ``lax.while_loop``/``scan`` become Python loops over tensors on the
 sampler's device. The tree's stop test reads one flag to the host per
 leapfrog, plus one U-turn flag per completed doubling; every read is counted
-by ``utils.host_syncs``. The JAX package's segmented and multi-chain runners
-are TPU workarounds and are not ported.
+by ``utils.host_syncs``.
+
+:func:`run_nuts_segmented` runs the plan in segments of transitions with
+a per-segment callback, a wall-clock deadline (which truncates the draws
+after warmup, and freezes adaptation when it fires during warmup) and a
+shallow tree-depth cap for the head of warmup; :func:`run_nuts` is its
+one-segment case, so both draw the same numbers from the same generator.
+The JAX package's lockstep multi-chain runner is not ported.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -127,9 +134,13 @@ def _build_subtree(potential_grad, depth, z0, r0, grad0, eps_signed, inv_mass,
             "stopped": stopped}
 
 
-def nuts_step(potential_grad: Callable, state: NUTSState, max_depth: int = 10) -> NUTSState:
+def nuts_step(potential_grad: Callable, state: NUTSState, max_depth: int = 10,
+              depth_cap: Optional[int] = None) -> NUTSState:
     """One NUTS transition: doublings in a random direction until a U-turn,
-    a divergence or ``max_depth``."""
+    a divergence or ``max_depth``. ``depth_cap`` (≤ ``max_depth``, which
+    stays the checkpoints' bound) caps the doublings of this transition:
+    the head of warmup runs shallow trees while dual averaging pulls the
+    step size into range (``warmup_depth_cap``)."""
     key, inv_mass, eps = state.rng_key, state.inv_mass, state.step_size
     r0 = sample_momentum(key, inv_mass)
     h0 = state.potential + kinetic_energy(r0, inv_mass)
@@ -140,7 +151,8 @@ def nuts_step(potential_grad: Callable, state: NUTSState, max_depth: int = 10) -
     sum_accept = torch.zeros_like(h0)
     diverging = torch.zeros((), dtype=torch.bool, device=h0.device)
     num_leaves = 0
-    for depth in range(max_depth):
+    depth_limit = max_depth if depth_cap is None else min(max_depth, int(depth_cap))
+    for depth in range(depth_limit):
         go_right = _uniform(key, h0) < 0.5
         edge = [torch.where(go_right, a, b) for a, b in zip(right, left)]
         sub = _build_subtree(potential_grad, depth, *edge, torch.where(go_right, eps, -eps),
@@ -202,29 +214,85 @@ def ravel(tree: Dict[str, torch.Tensor]):
     return flat, unravel
 
 
-def _warmup_xs(num_warmup: int, num_samples: int):
-    """Per-step flags of the warmup+sampling loop: (is_warmup,
-    is_warmup_next, in_window, window_end), as Python bool lists."""
+def _warmup_xs(num_warmup: int, num_samples: int, max_depth: int = 10,
+               warmup_depth_cap=None):
+    """Per-step rows of the warmup+sampling loop, as Python lists:
+    (is_warmup, is_warmup_next, in_window, window_end, depth_cap).
+    ``warmup_depth_cap`` = (cap, n_steps) caps the tree depth of the first
+    n_steps warmup transitions at cap; every other step has ``max_depth``."""
     in_window, window_end = (f.tolist() for f in warmup_schedule(num_warmup))
     total = num_warmup + num_samples
+    depth_cap = [max_depth] * total
+    if warmup_depth_cap is not None:
+        cap, n_steps = warmup_depth_cap
+        for i in range(min(int(n_steps), num_warmup)):
+            depth_cap[i] = int(cap)
     return ([i < num_warmup for i in range(total)],
             [i + 1 < num_warmup for i in range(total)],
             in_window + [False] * num_samples,
-            window_end + [False] * num_samples)
+            window_end + [False] * num_samples,
+            depth_cap)
+
+
+_SEGMENT_STATS = ("segment_wall_s", "segment_leapfrogs", "warmup_steps_run",
+                  "accept_mean_all")
 
 
 def run_nuts(potential_fn: Callable, init_unconstrained: Dict[str, torch.Tensor],
              rng_key: torch.Generator, num_warmup: int, num_samples: int,
              max_tree_depth: int = 10, target_accept_prob: float = 0.8,
              init_step_size: float = 1.0, collect_warmup: bool = False,
-             dense_mass: bool = False):
-    """Warmup + sampling for one chain over a dict of unconstrained latents.
-    ``rng_key`` must live on the latents' device.
+             dense_mass: bool = False, warmup_depth_cap=None):
+    """Warmup + sampling for one chain over a dict of unconstrained latents:
+    :func:`run_nuts_segmented` in one segment. ``rng_key`` must live on the
+    latents' device.
 
     Returns (flat samples (num_samples, dim), stats dict, unravel). The stats
     (``accept_prob``, ``num_steps``, ``diverging``, ``potential_energy``,
     ``step_size``) cover sampling only unless ``collect_warmup``.
     """
+    zs, stats, unravel = run_nuts_segmented(
+        potential_fn, init_unconstrained, rng_key, num_warmup, num_samples,
+        segment_size=max(num_warmup + num_samples, 1), max_tree_depth=max_tree_depth,
+        target_accept_prob=target_accept_prob, init_step_size=init_step_size,
+        dense_mass=dense_mass, collect_warmup=collect_warmup,
+        warmup_depth_cap=warmup_depth_cap)
+    return zs, {k: v for k, v in stats.items() if k not in _SEGMENT_STATS}, unravel
+
+
+def run_nuts_segmented(potential_fn: Callable, init_unconstrained: Dict[str, torch.Tensor],
+                       rng_key: torch.Generator, num_warmup: int, num_samples: int,
+                       segment_size: int = 50, max_tree_depth: int = 10,
+                       target_accept_prob: float = 0.8, init_step_size: float = 1.0,
+                       progress: bool = False, dense_mass: bool = False,
+                       collect_warmup: bool = False,
+                       segment_callback: Optional[Callable] = None,
+                       deadline: Optional[float] = None, warmup_depth_cap=None):
+    """Warmup + sampling for one chain in segments of ``segment_size``
+    transitions (``gpax_tpu/infer/nuts.py:499-669``). The chain's state,
+    dual averaging and Welford sums carry across segment boundaries, so the
+    draws are those of one unsegmented run with the same generator.
+
+    After each segment, ``segment_callback`` (if given) gets a dict of
+    ``segments_done``, ``n_segments``, ``steps_done``, ``total_steps``,
+    ``wall_s`` and the per-segment lists ``segment_wall_s`` and
+    ``segment_leapfrogs``; a segment's wall clock ends at a device
+    synchronize, so it measures the work and not its enqueue. Then the
+    ``deadline`` (a ``time.perf_counter()`` value) is read: past it after
+    warmup, the run stops and returns the draws so far; past it during
+    warmup, adaptation freezes at this boundary and the rest of the plan
+    becomes draws, at the full tree depth (``warmup_depth_cap`` binds only
+    warmup). ``warmup_depth_cap`` = (cap, n_steps) caps the tree depth of
+    the first n_steps warmup transitions.
+
+    Returns (flat samples, stats dict, unravel): the stats of
+    :func:`run_nuts`, plus ``segment_wall_s``, ``segment_leapfrogs`` (every
+    transition run, warmup included), ``warmup_steps_run`` and
+    ``accept_mean_all`` (the mean accept probability of every transition
+    run).
+    """
+    if segment_size < 1:
+        raise ValueError(f"segment_size must be at least 1, got {segment_size}")
     z0, unravel = ravel(init_unconstrained)
     dim, dtype, device = z0.shape[0], z0.dtype, z0.device
 
@@ -248,30 +316,72 @@ def run_nuts(potential_fn: Callable, init_unconstrained: Dict[str, torch.Tensor]
     wf = welford_init(dim, dtype, dense=dense_mass, device=device)
     zs, stats = [], {k: [] for k in ("accept_prob", "num_steps", "diverging",
                                      "potential_energy", "step_size")}
-    for warm, warm_next, in_win, win_end in zip(*_warmup_xs(num_warmup, num_samples)):
-        state = nuts_step(potential_grad, state, max_tree_depth)
-        if warm:  # dual averaging only advances during warmup
-            da = da_update(da, state.accept_prob, target_accept_prob)
-            da_steps += 1
-        # the live DA iterate while warming up, the averaged one once sampling
-        # (the live one if no update ever happened, i.e. num_warmup == 0)
-        log_eps = da.log_step if warm_next or da_steps == 0 else da.log_step_avg
-        state = state._replace(step_size=torch.exp(log_eps))
-        if in_win:
-            wf = welford_update(wf, state.z)
-        if win_end:
-            state = state._replace(inv_mass=welford_variance(wf))
-            da, da_steps = da_init(torch.exp(da.log_step)), 0
-            wf = welford_init(dim, dtype, dense=dense_mass, device=device)
-        zs.append(state.z)
-        stats["accept_prob"].append(state.accept_prob)
-        stats["num_steps"].append(state.num_steps)
-        stats["diverging"].append(state.diverging)
-        stats["potential_energy"].append(state.potential)
-        stats["step_size"].append(state.step_size)
-    first = 0 if collect_warmup else num_warmup
-    out = {k: (torch.tensor(v[first:], dtype=torch.int64) if k == "num_steps"
-               else torch.stack(v[first:]) if v[first:] else torch.zeros(0))
+    total = num_warmup + num_samples
+    xs = _warmup_xs(num_warmup, num_samples, max_tree_depth, warmup_depth_cap)
+    n_segments = -(-total // segment_size)
+    num_warmup_eff = num_warmup  # shrinks if the deadline fires during warmup
+    seg_wall, seg_leapfrogs = [], []
+    t_start = time.perf_counter()
+    for s in range(n_segments):
+        lo, hi = s * segment_size, min((s + 1) * segment_size, total)
+        t0 = time.perf_counter()
+        for i in range(lo, hi):
+            warm, warm_next, in_win, win_end, cap = (x[i] for x in xs)
+            state = nuts_step(potential_grad, state, max_tree_depth, cap)
+            if warm:  # dual averaging only advances during warmup
+                da = da_update(da, state.accept_prob, target_accept_prob)
+                da_steps += 1
+            # the live DA iterate while warming up, the averaged one once
+            # sampling (the live one if no update ever happened)
+            log_eps = da.log_step if warm_next or da_steps == 0 else da.log_step_avg
+            state = state._replace(step_size=torch.exp(log_eps))
+            if in_win:
+                wf = welford_update(wf, state.z)
+            if win_end:
+                state = state._replace(inv_mass=welford_variance(wf))
+                da, da_steps = da_init(torch.exp(da.log_step)), 0
+                wf = welford_init(dim, dtype, dense=dense_mass, device=device)
+            zs.append(state.z)
+            stats["accept_prob"].append(state.accept_prob)
+            stats["num_steps"].append(state.num_steps)
+            stats["diverging"].append(state.diverging)
+            stats["potential_energy"].append(state.potential)
+            stats["step_size"].append(state.step_size)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seg_wall.append(time.perf_counter() - t0)
+        seg_leapfrogs.append(sum(stats["num_steps"][lo:hi]))
+        done = hi
+        if progress:
+            print(f"  NUTS segment {s + 1}/{n_segments} ({done}/{total} steps)", flush=True)
+        if segment_callback is not None:
+            segment_callback({
+                "segments_done": s + 1, "n_segments": n_segments,
+                "steps_done": done, "total_steps": total,
+                "wall_s": time.perf_counter() - t_start,
+                "segment_wall_s": list(seg_wall),
+                "segment_leapfrogs": list(seg_leapfrogs),
+            })
+        if deadline is not None and time.perf_counter() >= deadline:
+            if done < num_warmup_eff:
+                # freeze adaptation here; the rest of the plan becomes draws
+                # at the full depth (the head's cap binds warmup only)
+                num_warmup_eff = done
+                for x in xs[:4]:
+                    x[done:] = [False] * (total - done)
+                xs[4][done:] = [max_tree_depth] * (total - done)
+            elif num_warmup_eff < done < total:
+                total = done  # return the draws collected so far
+                break
+
+    first = 0 if collect_warmup else num_warmup_eff
+    out = {k: (torch.tensor(v[first:total], dtype=torch.int64) if k == "num_steps"
+               else torch.stack(v[first:total]) if v[first:total] else torch.zeros(0))
            for k, v in stats.items()}
-    samples = torch.stack(zs[first:]) if zs[first:] else z0.new_zeros((0, dim))
+    out["segment_wall_s"] = torch.tensor(seg_wall, dtype=torch.float64)
+    out["segment_leapfrogs"] = torch.tensor(seg_leapfrogs, dtype=torch.int64)
+    out["warmup_steps_run"] = torch.tensor(num_warmup_eff, dtype=torch.int64)
+    out["accept_mean_all"] = (torch.stack(stats["accept_prob"][:total]).mean() if total
+                              else torch.tensor(math.nan))
+    samples = torch.stack(zs[first:total]) if zs[first:total] else z0.new_zeros((0, dim))
     return samples, out, unravel

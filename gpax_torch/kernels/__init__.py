@@ -1,4 +1,5 @@
 from .kernels import MaternKernel, PeriodicKernel, RBFKernel, get_kernel, square_scaled_distance
+from .mtkernels import LCMKernel, MultitaskKernel, MultivariateKernel, index_kernel
 
 __all__ = [
     "RBFKernel",
@@ -6,4 +7,8 @@ __all__ = [
     "PeriodicKernel",
     "get_kernel",
     "square_scaled_distance",
+    "index_kernel",
+    "MultitaskKernel",
+    "MultivariateKernel",
+    "LCMKernel",
 ]

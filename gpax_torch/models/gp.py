@@ -15,7 +15,9 @@ kernel (K1 for RBF/Matérn) → ``MultivariateNormal`` →
 closed-form backward). ``predict`` builds the grams and factors of a chunk
 of posterior draws at once; chunks are sized from the device's free memory.
 
-Not ported: the TPU auto-segmenting and the XLA program cache.
+``predict`` and ``predict_moments`` are differentiable in ``X_new``, which
+``acquisition.optimize_acq`` uses. Not ported: the TPU auto-segmenting and
+the XLA program cache.
 """
 
 from __future__ import annotations
@@ -209,11 +211,16 @@ class ExactGP:
         ``pad_to_multiple`` pads the training set to the next multiple with
         rows far outside the data and a large masked noise, so an
         active-learning loop sees few distinct sizes; prediction uses the
-        unpadded data. ``segment_size`` asks for the segmented runner, which
-        is not ported: it raises ``NotImplementedError``. ``segment_callback``,
-        ``deadline`` and ``warmup_depth_cap`` act only on that runner; without
-        ``segment_size`` they are ignored with a ``UserWarning``, as in the
-        JAX package.
+        unpadded data. ``segment_size`` runs NUTS in segments of that many
+        transitions (``infer.nuts.run_nuts_segmented``), with the same draws
+        as the unsegmented run from the same generator. On a single chain,
+        ``segment_callback`` gets each segment's telemetry, ``deadline`` (a
+        ``time.perf_counter()`` value) truncates the draws once warmup is
+        done or freezes adaptation when it passes during warmup, and
+        ``warmup_depth_cap`` = (cap, n_steps) caps the tree depth of the
+        first n_steps warmup transitions; without ``segment_size``, or on
+        several sequential chains, they are ignored with a ``UserWarning``,
+        as in the JAX package.
         """
         X, y = self._set_data(X, y, device)
         self.X_train, self.y_train = X, y
@@ -304,7 +311,6 @@ class ExactGP:
         return {k: torch.as_tensor(v, dtype=self.dtype, device=device)
                 for k, v in samples.items()}
 
-    @torch.no_grad()
     def predict(self, rng_key: Union[torch.Generator, int], X_new,
                 samples: Optional[Dict[str, torch.Tensor]] = None, n: int = 1,
                 filter_nans: bool = False, noiseless: bool = False, device=None,
@@ -373,7 +379,6 @@ class ExactGP:
         mean, var = gp_predictive_mean_var(k_XX, k_pX, k_pp_diag, self._residual(params))
         return self._add_mean(mean, X_new, params), var
 
-    @torch.no_grad()
     def predict_moments(self, rng_key, X_new, samples: Optional[Dict[str, torch.Tensor]] = None,
                         noiseless: bool = False, device=None, **kwargs
                         ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,6 +2,7 @@
 
     python -m gpax_torch.probes.sparse_precision   # float32 vs float64 on the viSparseGP path
     python -m gpax_torch.probes.svi_step_profile   # where an SVI step's time goes
+    python -m gpax_torch.probes.mtgp_divergences   # config 4's fit across seeds; its leapfrog
 
 They are not imported by the package.
 """

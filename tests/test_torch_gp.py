@@ -193,8 +193,8 @@ def test_unported_pieces_raise():
         gpax_torch.ExactGP(1, "NNGP")
     X, y = _data()
     with pytest.raises(NotImplementedError):
-        gpax_torch.ExactGP(1, "RBF").fit(0, X, y, num_warmup=5, num_samples=5, segment_size=2,
-                                         device="cpu")
+        gpax_torch.ExactGP(1, "RBF").fit(0, X, y, num_warmup=5, num_samples=5, num_chains=2,
+                                         chain_method="vectorized", device="cpu")
 
 
 def test_samples_from_numpy():

@@ -1,7 +1,7 @@
 """The segmented runner's options on a non-segmented ExactGP fit: the port
 warns and runs the ordinary fit where gpax_tpu does
-(tests/test_round5.py::test_nonsegmented_run_warns_on_ignored_options), and
-still raises on ``segment_size``, whose runner is not ported."""
+(tests/test_round5.py::test_nonsegmented_run_warns_on_ignored_options); and
+a ``segment_size`` fit runs segmented, raising only on a negative size."""
 
 import time
 
@@ -37,7 +37,16 @@ def test_ignored_option_warns_and_fits(option):
 
 
 def test_segment_size_still_raises():
+    """A segment_size fit runs and reports its segments' wall clock; only a
+    negative segment_size still raises (0 or None runs unsegmented, as in
+    the JAX package)."""
     X, y = _data()
-    with pytest.raises(NotImplementedError):
+    gp = gpax_torch.ExactGP(1, "RBF")
+    gp.fit(0, X, y, num_warmup=10, num_samples=10, print_summary=False, progress_bar=False,
+           device="cpu", segment_size=4)
+    wall = gp.mcmc.get_extra_fields()["segment_wall_s"]
+    assert wall.shape == (5,) and bool((wall > 0).all())
+    assert gp.get_samples()["noise"].shape == (10,)
+    with pytest.raises(ValueError):
         gpax_torch.ExactGP(1, "RBF").fit(0, X, y, num_warmup=10, num_samples=10,
-                                         print_summary=False, device="cpu", segment_size=4)
+                                         print_summary=False, device="cpu", segment_size=-1)
