@@ -99,7 +99,32 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     (20 + 40, segments of 10, ``warmup_depth_cap`` (1, 20)) must freeze at
     10 warmup steps and return 10 finite draws whose trees exceed the cap,
     and two sequential chains must warn and run their whole plan;
-16. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
+16. drives BASELINE config 5 at full size (bench.py:603-658's data: a pool
+    of 2000 points in d = 784, 256 measured; ``viDKL(784, z_dim=2)``,
+    ``fit_predict(n_models=8, ensemble_method="vectorized",
+    num_steps=1000)``), cold and then warm with a second key, printing the
+    seconds, model fits/s, ms and host syncs per SVI step and the K1/K2
+    launches of the fit and the pool predict; checks each model's losses
+    (finite, the last 50 steps' mean below the first), that the 8 models end
+    apart, and against the JAX package over eight keys
+    (reference/config5_jax.py) the ensemble mean's pool RMSE, the count of
+    models left at the targets' mean, the others' median RMSE and the best
+    model's; then holds K1 against its twin on
+    the fitted ensemble's (8, 256, 256) training gram on the learned
+    embedding, its (8, 2000, 256) and (8, 2000, 2000) predictive grams, K2
+    on their float64 factors, and the gram's backward into the embedding
+    (``_Gram``'s ``dXs``) against autograd of the twin;
+17. fits viDKL on two channels of those 256 points (300 steps), then
+    ``predict`` and ``embed`` on the pool, checking shapes, values and
+    launches;
+18. fits DKL by NUTS (n = 128, d = 36, ``hidden_dim=[8, 4]``, 50 + 50
+    draws, depth 5) and predicts 256 points, printing leapfrogs, accept and
+    divergences;
+19. fits viMTDKL on 300 points of two tasks (300 steps) and predicts them,
+    with K1 and K2 launched;
+20. fits a BNN on 300 points (20 + 20 draws at the JAX package's tree
+    depth of 10) and predicts them;
+21. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -124,6 +149,10 @@ import gpax_torch
 from gpax_torch import acquisition as acq
 from gpax_torch.ops import build, chol, gram, linalg, panel_chol
 from gpax_torch.ppl import initialize_model, log_density
+from gpax_torch.probes.configs import (MT_DEPTH, MT_DEPTH_CAP, MT_SAMPLES, MT_SEGMENT,
+                                       MT_TARGET, MT_WARMUP, VIDKL_D, VIDKL_MEASURED,
+                                       VIDKL_MODELS, VIDKL_POOL, VIDKL_STEPS, config4_data,
+                                       config5_data, f_hi)
 from gpax_torch.utils import get_keys, host_syncs, preprocess_sparse_image, reset_host_syncs
 
 N_MAIN = 4096        # training points of the main path (bench.py's n)
@@ -189,12 +218,10 @@ BO_CHECK_DRAWS, BO_CHECK_POINTS = 4, 256
 BO_CHECK_TOL = 1e-2
 # BASELINE config 4 (bench.py:471-600), cut from 1000 + 4000 draws to
 # 200 + 200: the port's NUTS is driven from the host
-MT_WARMUP, MT_SAMPLES, MT_SEGMENT = 200, 200, 50
-MT_DEPTH, MT_DEPTH_CAP, MT_TARGET = 8, (5, 20), 0.7
+# (gpax_torch/probes/configs.py holds its data and fit settings)
 MT_GRID = 101
 MT_KG_POINTS, MT_KG_FANTASIES = 8, 4
 MT_RMSE_MAX = 0.03  # the JAX package on the CPU (reference/config4_jax.py): 0.01566
-MT_N_LO, MT_N_HI = 320, 64
 # EI against its float64 closed form on the same moments: values above
 # EI_REF_FLOOR·max(EI) within EI_RTOL (float32's exp(-u²/2) loses ~u²·eps
 # relative, ~5e-4 at u = -9), and none below -1e-30 (float32 subnormals)
@@ -203,6 +230,33 @@ EI_RTOL, EI_REF_FLOOR = 1e-3, 1e-20
 # trees of at most 2^6 - 1 leapfrogs (tests/test_round5.py's depth)
 FREEZE_WARMUP, FREEZE_SAMPLES, FREEZE_SEGMENT, FREEZE_CAP = 20, 40, 10, (1, 20)
 FREEZE_DEPTH = 6
+# BASELINE config 5 (bench.py:603-658): viDKL's 8-model ensemble, d = 784,
+# 256 measured of a 2000-point pool, 1000 SVI steps, at full size. A model
+# whose first embedding saturates stays at the targets' mean (pool RMSE
+# ~0.74), and the keys differ in how many do, so each run is held to the
+# JAX package on the CPU over eight keys (reference/config5_jax.py): the
+# ensemble mean's pool RMSE to 1.5 times the largest (0.0190 to 0.3352,
+# median 0.1505); the models above VIDKL_STALLED_RMSE to the most on any
+# key (0-4); the others' median RMSE to 1.5 times the largest median
+# (0.0221 to 0.1039) and the best model to 1.5 times the largest best
+# (0.0137 to 0.0233)
+VIDKL_WARM_SEED = 7
+VIDKL_RMSE_REF = 0.3352339874505331
+VIDKL_RMSE_FACTOR = 1.5
+VIDKL_STALLED_RMSE, VIDKL_STALLED_MAX = 0.5, 4
+VIDKL_LEARNED_MEDIAN_REF = 0.1039403827181703
+VIDKL_BEST_REF = 0.023311033385545733
+VIDKL_TAIL = 50  # each model's mean loss over its last steps, below its first
+VIDKL_CHANNEL_STEPS = 300
+# DKL (NUTS over a tanh MLP's weights) at a size the time limit allows
+DKL_N, DKL_D, DKL_HIDDEN, DKL_PREDICT = 128, 36, [8, 4], 256
+DKL_WARMUP, DKL_SAMPLES, DKL_DEPTH = 50, 50, 5
+# viMTDKL (tests/test_models_extra.py:153-167) and BNN (tests/test_dkl.py:138)
+# scaled to a few hundred points; the BNN's fit runs at the JAX package's
+# tree depth of 10, where its adapted trees take hundreds of leapfrogs a
+# draw, so it takes 20 + 20 draws
+MTDKL_N0, MTDKL_N1, MTDKL_D, MTDKL_STEPS = 200, 100, 5, 300
+BNN_N, BNN_HIDDEN, BNN_WARMUP, BNN_SAMPLES = 300, [8, 4], 20, 20
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
 # bytes/s, and the highest FLOP/s the card offers for each dtype without a
@@ -1222,23 +1276,6 @@ def vigp_path():
     return {"fit": fit_launch, "predict": pred_launch}, model, full_grid[:VIGP_BATCH]
 
 
-def f_hi(x):
-    return np.sin(5 * x) * np.exp(-x)
-
-
-def config4_data():
-    """bench.py:471-600's data: 320 low- and 64 high-fidelity points on
-    [0, 2], f_hi = sin(5x)·e^(−x), f_lo = 0.8·f_hi + 0.2·cos(3x), noise sd
-    0.05, the task index in the last column; float32."""
-    rng = np.random.default_rng(0)
-    x_lo, x_hi = rng.uniform(0, 2, MT_N_LO), rng.uniform(0, 2, MT_N_HI)
-    X = np.concatenate([np.column_stack([x_lo, np.zeros(MT_N_LO)]),
-                        np.column_stack([x_hi, np.ones(MT_N_HI)])])
-    y = np.concatenate([0.8 * f_hi(x_lo) + 0.2 * np.cos(3 * x_lo), f_hi(x_hi)])
-    y = y + 0.05 * rng.normal(size=MT_N_LO + MT_N_HI)
-    return X.astype(np.float32), y.astype(np.float32)
-
-
 def check_ei(label: str, values: torch.Tensor, moments, maximize: bool) -> None:
     """EI's values are ≥ -1e-30, and ``ei`` on the moments EI scored (mean,
     variance) agrees with σ(φ(u) + u·Φ(u)) in float64, Φ by erfc, where that
@@ -1501,6 +1538,254 @@ def freeze_path() -> dict:
 
 
 @contextlib.contextmanager
+def svi_runs():
+    """Per call of ``SVI.run`` while the block runs: its wall seconds (ending
+    at a synchronize), the kernel launches and the host syncs counted when
+    it returns."""
+    runs, run = [], gpax_torch.infer.SVI.run
+
+    def timed_run(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = run(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        runs.append({"s": time.perf_counter() - t0, "launches": counts(),
+                     "host_syncs": host_syncs()})
+        return out
+
+    gpax_torch.infer.SVI.run = timed_run
+    try:
+        yield runs
+    finally:
+        gpax_torch.infer.SVI.run = run
+
+
+def vidkl_run(label: str, key, X, y, X_pool, y_pool):
+    """One ``fit_predict(n_models=8)`` of config 5 and its checks."""
+    model = gpax_torch.viDKL(VIDKL_D, z_dim=2, kernel="RBF")
+    reset_host_syncs()
+    with svi_runs() as runs:
+        (mean, var), seconds, total = timed(lambda: model.fit_predict(
+            key, X, y, X_pool, num_steps=VIDKL_STEPS, n_models=VIDKL_MODELS,
+            ensemble_method="vectorized", print_summary=False, progress_bar=False))
+    fit = runs[0]
+    launched = {"fit": fit["launches"],
+                "predict": {k: total[k] - fit["launches"][k] for k in total}}
+    losses = model.loss.cpu()
+    mean_np = mean.cpu().numpy()
+    rmse = float(np.sqrt(np.mean((mean_np.mean(0) - y_pool) ** 2)))
+    model_rmse = np.sqrt(np.mean((mean_np - y_pool) ** 2, axis=1))
+    learned = model_rmse[model_rmse <= VIDKL_STALLED_RMSE]
+    summary = {
+        "run": label, "fit_predict_s": seconds, "model_fits_per_s": VIDKL_MODELS / seconds,
+        "fit_s": fit["s"], "ms_per_svi_step": 1e3 * fit["s"] / VIDKL_STEPS,
+        "predict_s": seconds - fit["s"],
+        "host_syncs_per_step": fit["host_syncs"] / VIDKL_STEPS,
+        "loss_first": losses[:, 0].tolist(), "loss_first_steps_max": losses[:, :5].max().item(),
+        "loss_tail_mean": losses[:, -VIDKL_TAIL:].mean(1).tolist(),
+        "pool_rmse": rmse, "pool_rmse_max": VIDKL_RMSE_FACTOR * VIDKL_RMSE_REF,
+        "model_rmse": model_rmse.tolist(), "stalled": int(len(model_rmse) - len(learned)),
+        "k_length": model.kernel_params["k_length"].tolist(),
+        "noise": model.kernel_params["noise"].tolist(), "launches": launched,
+    }
+    print(f"viDKL config5: {json.dumps(summary)}", flush=True)
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"viDKL config5 {label}: non-finite losses")
+    if not bool((losses[:, -VIDKL_TAIL:].mean(1) < losses[:, 0]).all()):
+        fail(f"viDKL config5 {label}: a model's last {VIDKL_TAIL} losses are not below its first")
+    if mean.shape != (VIDKL_MODELS, VIDKL_POOL) or var.shape != mean.shape or \
+            not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all())):
+        fail(f"viDKL config5 {label}: predictions of shape {tuple(mean.shape)} or non-finite")
+    w0 = model.nn_params["linear_0"]["w"]
+    ls = model.kernel_params["k_length"]
+    for b in range(VIDKL_MODELS):
+        for c in range(b):
+            if torch.equal(w0[b], w0[c]) or torch.equal(ls[b], ls[c]):
+                fail(f"viDKL config5 {label}: models {c} and {b} end with equal parameters")
+    if not rmse <= VIDKL_RMSE_FACTOR * VIDKL_RMSE_REF:
+        fail(f"viDKL config5 {label}: pool RMSE {rmse} > "
+             f"{VIDKL_RMSE_FACTOR} x {VIDKL_RMSE_REF}")
+    if len(model_rmse) - len(learned) > VIDKL_STALLED_MAX:
+        fail(f"viDKL config5 {label}: {len(model_rmse) - len(learned)} models above "
+             f"{VIDKL_STALLED_RMSE} (the JAX package's most on a key: {VIDKL_STALLED_MAX})")
+    if not np.median(learned) <= VIDKL_RMSE_FACTOR * VIDKL_LEARNED_MEDIAN_REF:
+        fail(f"viDKL config5 {label}: the learned models' median RMSE {np.median(learned)} > "
+             f"{VIDKL_RMSE_FACTOR} x {VIDKL_LEARNED_MEDIAN_REF}")
+    if not model_rmse.min() <= VIDKL_RMSE_FACTOR * VIDKL_BEST_REF:
+        fail(f"viDKL config5 {label}: the best model's RMSE {model_rmse.min()} > "
+             f"{VIDKL_RMSE_FACTOR} x {VIDKL_BEST_REF}")
+    require_launches(f"viDKL config5 {label}", launched, ("gram", "trtri"))
+    return launched, model
+
+
+def vidkl_path():
+    """BASELINE config 5 at full size, cold then warm with a second key."""
+    X_pool, y_pool, measured, _ = config5_data()
+    X, y = X_pool[measured], y_pool[measured].astype(np.float32)
+    launched = {}
+    for label, key in (("cold", get_keys(0)[0]),
+                       ("warm", torch.Generator().manual_seed(VIDKL_WARM_SEED))):
+        runs, model = vidkl_run(label, key, X, y, X_pool, y_pool)
+        launched.update({f"{label} {k}": v for k, v in runs.items()})
+    return launched, model, X_pool
+
+
+def vidkl_sites(model) -> dict:
+    """The fitted ensemble's guide medians under their site names."""
+    sites = {f"feature_extractor/{layer}/{p}": v
+             for layer, ps in model.nn_params.items() for p, v in ps.items()}
+    return {**sites, **model.kernel_params}
+
+
+def check_vidkl_shapes(model, X_pool) -> None:
+    """K1 and K2 against their twins on the fitted ensemble's own inputs:
+    every gram of one evaluation of the batched model (the (8, 256, 256)
+    training gram on the learned embedding) and of its posterior at the pool
+    ((8, 2000, 2000) k_pp, (8, 2000, 256) k_pX, k_XX); K2 on every float64
+    factor; then the gram's backward into the embedding (``_Gram``'s closed
+    form on K1's forward, the network's gradient path) against autograd of
+    the twin on the training gram's inputs."""
+    X, y = model.X_train, model.y_train
+    X_pool = model._set_data(X_pool, device=X.device)
+    with torch.no_grad(), captured(gram, "gram_unscaled") as grams, \
+            captured(chol, "tile_tri_inv") as factors:
+        log_density(model.model, (X, y), {}, vidkl_sites(model), (VIDKL_MODELS,))
+        model.get_mvn_posterior(X_pool, model.nn_params, model.kernel_params)
+    k1_compare_calls("viDKL config5", grams)
+    Xs, _, nz, kind, _ = grams[0]
+    del grams
+    k2_compare_calls("viDKL config5", factors, (VIDKL_MEASURED,))
+    del factors
+    g = torch.randn(Xs.shape[:-1] + Xs.shape[-2:-1], device=Xs.device,
+                    generator=torch.Generator(device=Xs.device).manual_seed(0))
+    Xa = Xs.clone().requires_grad_(True)
+    (gram._Gram.apply(Xa, Xa, nz, kind, False, True) * g).sum().backward()
+    Xb = Xs.clone().requires_grad_(True)
+    (gram.gram_twin(Xb, Xb, nz, kind, False) * g).sum().backward()
+    err = (Xa.grad - Xb.grad).abs().max().item()
+    rel = err / Xb.grad.abs().max().item()
+    norms = 2 * (Xs * Xs).sum(-1).max().item()
+    tol = 10 * K1_TOL * max(1.0, norms / 60.0)
+    print(f"K1 viDKL config5 dXs backward {tuple(Xs.shape)}: max|err|={err:.3e} "
+          f"rel={rel:.3e} (tol {tol:.1e})", flush=True)
+    if not rel <= tol:
+        fail(f"viDKL config5: the gram's dXs disagrees with the twin's autograd: rel {rel}")
+
+
+def vidkl_channels_path():
+    """A 2-channel fit of config 5's measured points (y and a second target
+    of the same latent), then predict and embed on the pool."""
+    X_pool, y_pool, measured, latent = config5_data()
+    y2 = np.stack([y_pool, np.cos(2.0 * latent[:, 1]) + 0.3 * latent[:, 0]])
+    key_fit, key_pred = get_keys(1)
+    model = gpax_torch.viDKL(VIDKL_D, z_dim=2, kernel="RBF")
+    reset_host_syncs()
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X_pool[measured], y2[:, measured].astype(np.float32),
+        num_steps=VIDKL_CHANNEL_STEPS, print_summary=False, progress_bar=False))
+    syncs = host_syncs()
+    (mean, var), pred_s, pred_launch = timed(lambda: model.predict(key_pred, X_pool))
+    z, embed_s, _ = timed(lambda: model.embed(X_pool))
+    losses = model.loss.cpu()
+    rmse = np.sqrt(np.mean((mean.cpu().numpy() - y2) ** 2, axis=1)).tolist()
+    summary = {"channels": 2, "num_steps": VIDKL_CHANNEL_STEPS, "fit_s": fit_s,
+               "ms_per_svi_step": 1e3 * fit_s / VIDKL_CHANNEL_STEPS,
+               "host_syncs_per_step": syncs / VIDKL_CHANNEL_STEPS,
+               "loss_first": losses[:, 0].tolist(), "loss_last": losses[:, -1].tolist(),
+               "predict_s": pred_s, "embed_s": embed_s, "pool_rmse": rmse,
+               "launches": {"fit": fit_launch, "predict": pred_launch}}
+    print(f"viDKL channels: {json.dumps(summary)}", flush=True)
+    if losses.shape != (2, VIDKL_CHANNEL_STEPS) or not bool(torch.isfinite(losses).all()):
+        fail(f"viDKL channels: losses of shape {tuple(losses.shape)} or non-finite")
+    if mean.shape != (2, VIDKL_POOL) or var.shape != mean.shape or \
+            z.shape != (2, VIDKL_POOL, 2) or not all(
+                bool(torch.isfinite(t).all()) for t in (mean, var, z)):
+        fail(f"viDKL channels: shapes {tuple(mean.shape)}, {tuple(z.shape)} or non-finite")
+    launched = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("viDKL channels", launched, ("gram", "trtri"))
+    return launched
+
+
+def dkl_path():
+    """DKL's NUTS fit (a tanh MLP's weights and the GP's hyperparameters),
+    then predict at new points."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(DKL_N, DKL_D)).astype(np.float32)
+    y = (np.sin(X[:, 0]) + 0.05 * rng.normal(size=DKL_N)).astype(np.float32)
+    X_new = rng.normal(size=(DKL_PREDICT, DKL_D)).astype(np.float32)
+    key_fit, key_pred = get_keys(0)
+    model = gpax_torch.DKL(DKL_D, z_dim=2, kernel="RBF", hidden_dim=DKL_HIDDEN)
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X, y, num_warmup=DKL_WARMUP, num_samples=DKL_SAMPLES,
+        max_tree_depth=DKL_DEPTH, print_summary=False, progress_bar=False))
+    stats = model.mcmc.get_extra_fields()
+    leapfrogs = model.mcmc.num_leapfrogs
+    (mean, draws), pred_s, pred_launch = timed(lambda: model.predict(key_pred, X_new))
+    summary = {"n": DKL_N, "d": DKL_D, "hidden_dim": DKL_HIDDEN, "num_warmup": DKL_WARMUP,
+               "num_samples": DKL_SAMPLES, "max_tree_depth": DKL_DEPTH, "fit_s": fit_s,
+               "leapfrogs": leapfrogs, "ms_per_leapfrog": 1e3 * fit_s / max(leapfrogs, 1),
+               "accept_mean": stats["accept_prob"].mean().item(),
+               "divergences": int(stats["diverging"].sum()), "predict_s": pred_s,
+               "launches": {"fit": fit_launch, "predict": pred_launch}}
+    print(f"DKL: {json.dumps(summary)}", flush=True)
+    if mean.shape != (DKL_PREDICT,) or not (bool(torch.isfinite(mean).all())
+                                             and bool(torch.isfinite(draws).all())):
+        fail(f"DKL: predictions of shape {tuple(mean.shape)} or non-finite")
+    launched = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("DKL", launched, ("gram", "trtri"))
+    return launched
+
+
+def mtdkl_path():
+    """viMTDKL on two tasks of test_models_extra.py's kind, 300 points."""
+    rng = np.random.default_rng(0)
+    X = np.concatenate([
+        np.column_stack([rng.normal(size=(MTDKL_N0, MTDKL_D)), np.zeros(MTDKL_N0)]),
+        np.column_stack([rng.normal(size=(MTDKL_N1, MTDKL_D)), np.ones(MTDKL_N1)])])
+    y = np.concatenate([np.sin(X[:MTDKL_N0, 0]), np.cos(X[MTDKL_N0:, 0])])
+    X, y = X.astype(np.float32), y.astype(np.float32)
+    key_fit, key_pred = get_keys(0)
+    model = gpax_torch.viMTDKL(MTDKL_D, z_dim=2, data_kernel="RBF", num_latents=1,
+                               num_tasks=2, rank=1)
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X, y, num_steps=MTDKL_STEPS, print_summary=False, progress_bar=False))
+    (mean, var), pred_s, pred_launch = timed(lambda: model.predict(key_pred, X))
+    losses = model.loss.cpu()
+    summary = {"n": len(y), "num_steps": MTDKL_STEPS, "fit_s": fit_s,
+               "ms_per_svi_step": 1e3 * fit_s / MTDKL_STEPS, "loss_first": losses[0].item(),
+               "loss_last": losses[-1].item(), "predict_s": pred_s,
+               "rmse": float(np.sqrt(np.mean((mean.cpu().numpy() - y) ** 2))),
+               "launches": {"fit": fit_launch, "predict": pred_launch}}
+    print(f"viMTDKL: {json.dumps(summary)}", flush=True)
+    if not all(bool(torch.isfinite(t).all()) for t in (losses, mean, var)):
+        fail("viMTDKL: non-finite losses or predictions")
+    launched = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("viMTDKL", launched, ("gram", "trtri"))
+    return launched
+
+
+def bnn_path() -> None:
+    """BNN (no GP kernel) at 300 points: the NUTS fit and predict."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, BNN_N).astype(np.float32)
+    y = np.sin(3 * X).astype(np.float32)
+    key_fit, key_pred = get_keys(0)
+    model = gpax_torch.BNN(1, 1, hidden_dim=BNN_HIDDEN)
+    _, fit_s, _ = timed(lambda: model.fit(
+        key_fit, X, y, num_warmup=BNN_WARMUP, num_samples=BNN_SAMPLES,
+        print_summary=False, progress_bar=False))
+    leapfrogs = model.mcmc.num_leapfrogs
+    (y_pred, y_sampled), pred_s, _ = timed(lambda: model.predict(key_pred, X[:, None]))
+    rmse = float(np.sqrt(np.mean((y_pred.cpu().numpy()[:, 0] - y) ** 2)))
+    print("BNN: " + json.dumps({
+        "n": BNN_N, "hidden_dim": BNN_HIDDEN, "fit_s": fit_s, "leapfrogs": leapfrogs,
+        "ms_per_leapfrog": 1e3 * fit_s / max(leapfrogs, 1), "predict_s": pred_s,
+        "rmse": rmse}), flush=True)
+    if y_pred.shape != (BNN_N, 1) or not (bool(torch.isfinite(y_pred).all())
+                                          and bool(torch.isfinite(y_sampled).all())):
+        fail(f"BNN: predictions of shape {tuple(y_pred.shape)} or non-finite")
+
+
+@contextlib.contextmanager
 def phase(name: str):
     """Print the wall time of the block."""
     t0 = time.perf_counter()
@@ -1557,6 +1842,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("MultiTaskGP freeze"):
         paths["MultiTaskGP freeze"] = freeze_path()
+    with phase("viDKL config5"):
+        paths["viDKL config5"], model, X_pool = vidkl_path()
+        check_vidkl_shapes(model, X_pool)
+    del model
+    torch.cuda.empty_cache()
+    with phase("viDKL channels"):
+        paths["viDKL channels"] = vidkl_channels_path()
+    with phase("DKL"):
+        paths["DKL"] = dkl_path()
+    with phase("viMTDKL"):
+        paths["viMTDKL"] = mtdkl_path()
+    with phase("BNN"):
+        bnn_path()
 
     def launches(k):
         by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}

@@ -3,8 +3,11 @@
 It imports ``torch`` and never ``jax``. It runs the fully Bayesian
 ExactGP path (NUTS over the kernel hyperparameters, in segments if asked,
 then prediction), the multi-task ``MultiTaskGP`` and ``CoregGP``, the
-acquisition functions of Bayesian optimization (``acquisition``), and the
-SVI family: ``viGP`` and the sparse ``viSparseGP``. Its three
+acquisition functions of Bayesian optimization (``acquisition``), the
+SVI family: ``viGP`` and the sparse ``viSparseGP``, and the NN-coupled
+models on its own NN modules (``nn``): ``viDKL`` with its batched
+ensembles and channels, ``viMTDKL``, the NUTS-fitted ``DKL``, and ``sPM``
+and ``BNN``. Its three
 hand-written Hopper kernels, the fused gram (K1, ``ops/gram.py``), the
 triangular tile inverse (K2) and the tile Cholesky and inverse (K3, both
 ``ops/chol.py``), launch on CUDA tensors; on CPU tensors their plain
@@ -14,9 +17,20 @@ matmuls to full precision (``config.py``).
 """
 
 from . import config  # noqa: F401  (first: pins fp32 matmul precision)
-from . import acquisition, distributions, infer, kernels, ops, ppl, utils
+from . import acquisition, distributions, infer, kernels, nn, ops, ppl, utils
 from .config import get_config, set_config
-from .models import CoregGP, ExactGP, MultiTaskGP, viGP, viSparseGP
+from .models import (
+    BNN,
+    DKL,
+    CoregGP,
+    ExactGP,
+    MultiTaskGP,
+    sPM,
+    viDKL,
+    viGP,
+    viMTDKL,
+    viSparseGP,
+)
 
 __version__ = "0.1.0"
 
@@ -27,6 +41,7 @@ __all__ = [
     "distributions",
     "infer",
     "kernels",
+    "nn",
     "ops",
     "ppl",
     "utils",
@@ -37,4 +52,9 @@ __all__ = [
     "CoregGP",
     "viGP",
     "viSparseGP",
+    "viDKL",
+    "DKL",
+    "viMTDKL",
+    "sPM",
+    "BNN",
 ]

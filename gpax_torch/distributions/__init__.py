@@ -1,5 +1,6 @@
 from . import constraints
 from .distributions import (
+    Cauchy,
     Distribution,
     HalfNormal,
     Independent,
@@ -20,6 +21,7 @@ __all__ = [
     "Normal",
     "LogNormal",
     "HalfNormal",
+    "Cauchy",
     "Independent",
     "MultivariateNormal",
     "LowRankMultivariateNormal",

@@ -11,6 +11,7 @@ Shapes follow the numpyro convention::
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Tuple
 
@@ -61,6 +62,18 @@ class Distribution:
 
     def to_event(self, n: int = 1) -> "Independent":
         return Independent(self, n)
+
+    def expand(self, batch_shape) -> "Distribution":
+        """The same distribution over ``batch_shape``, its parameters
+        broadcast lazily. Scalar parameters stay 0-d tensors, which combine
+        with values on any device, so a prior made without knowing the
+        data's device serves a model on the card."""
+        batch_shape = tuple(batch_shape)
+        if _bshape(self.batch_shape, batch_shape) != batch_shape:
+            raise ValueError(f"cannot expand batch shape {self.batch_shape} to {batch_shape}")
+        new = copy.copy(self)
+        new.batch_shape = batch_shape
+        return new
 
     @property
     def mean(self):
@@ -155,12 +168,36 @@ class HalfNormal(Distribution):
         return (self.scale**2 * (1.0 - 2.0 / math.pi)).expand(self.batch_shape)
 
 
+class Cauchy(Distribution):
+    support = constraints.real
+
+    def __init__(self, loc=0.0, scale=1.0):
+        self.loc = _as(loc)
+        self.scale = _as(scale)
+        self.batch_shape = _bshape(self.loc.shape, self.scale.shape)
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        eps = torch.empty(shape, dtype=self.loc.dtype, device=key.device).cauchy_(
+            generator=key)
+        return self.loc + self.scale * eps
+
+    def log_prob(self, value):
+        z = (value - self.loc) / self.scale
+        return -math.log(math.pi) - torch.log(self.scale) - torch.log1p(z * z)
+
+    @property
+    def mean(self):
+        return torch.full(self.batch_shape, math.nan, dtype=self.loc.dtype)
+
+
 class MultivariateNormal(Distribution):
     """MVN parameterized by covariance matrix or its Cholesky factor.
 
-    ``log_prob`` of a 2-D covariance routes to
-    ``ops.linalg.mvn_log_prob_centered`` (one factorization, K2's blocked
-    inverse, closed-form backward); otherwise it solves with the factor.
+    ``log_prob`` given a covariance, 2-D or batched (…, n, n), routes to
+    ``ops.linalg.mvn_log_prob_centered`` (one float64 factorization of the
+    whole batch, K2's blocked inverse, closed-form backward) and returns one
+    value per matrix; given ``scale_tril`` it solves with the factor.
     """
 
     support = constraints.real_vector
@@ -193,7 +230,7 @@ class MultivariateNormal(Distribution):
 
     def log_prob(self, value):
         diff = value - self.loc
-        if self._covariance is not None and self._covariance.ndim == 2:
+        if self._covariance is not None:
             from ..ops.linalg import mvn_log_prob_centered
 
             return mvn_log_prob_centered(self._covariance, diff)

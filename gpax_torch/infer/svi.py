@@ -12,32 +12,47 @@ The JAX package compiles the whole fit as one ``lax.scan``. Here
 evaluates the negative ELBO, differentiates it by autograd and takes one
 Adam step. The losses stay on the device until the run ends, so a step reads
 nothing back to the host.
+
+Given a list of B generators, :meth:`SVI.run` fits B models at once, where
+the JAX package vmaps the whole fit: every guide and param site gets a
+leading dim of B, each model's initial values come from its own generator,
+the model is evaluated once on the batched values (the model must broadcast
+over that dim: viDKL's network, gram and MVN do), and the step
+backpropagates the sum of the B negative ELBOs. Adam is elementwise, so each
+model takes exactly the steps its own fit would.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..distributions import Normal, biject_to
 from ..distributions.distributions import _randn
 from ..ppl import get_latent_structure, log_density, seed, trace
+from ..ppl.core import sum_batched
 from ..ppl.util import constrain, transform_log_det, unconstrain
-from ..utils.utils import spawn
+from ..utils.utils import spawn, tree_map
 
 
 class AutoGuide:
     """Base: a guide is three functions over a flat dict of parameters:
     ``init_params(key) -> params``, ``sample_and_log_prob(params, key) ->
-    (latents, log q)`` and ``median(params) -> constrained latents``."""
+    (latents, log q)`` and ``median(params) -> constrained latents``.
+
+    ``batch_shape`` is () for one model, or (B,) while :class:`SVI` fits B
+    models at once: the parameters then lead with it, ``rng_key`` is a list
+    of B generators (model b's draws come from the b-th) and log q has
+    that shape."""
 
     def __init__(self, model):
         self.model = model
         self._transforms = None
         self._site_shapes = None
         self.prototype_initialized = False
+        self.batch_shape = ()
 
     def _init_unconstrained(self, rng_key, model_args=(), model_kwargs=None
                             ) -> Dict[str, torch.Tensor]:
@@ -80,7 +95,7 @@ class AutoDelta(AutoGuide):
         # MAP in constrained space (numpyro's AutoDelta): the delta guide's
         # log q cancels the model-side change of variables, so the objective
         # is log p(x, z) with no Jacobian term
-        log_q = torch.zeros((), device=next(iter(u.values())).device)
+        log_q = torch.zeros(self.batch_shape, device=next(iter(u.values())).device)
         return constrain(self._transforms, u), log_q
 
     def median(self, params):
@@ -103,7 +118,7 @@ class AutoNormal(AutoGuide):
         return params
 
     def sample_and_log_prob(self, params, rng_key):
-        eps = {n: _randn(rng_key, params[f"{n}_loc"].shape, params[f"{n}_loc"])
+        eps = {n: _draw(rng_key, params[f"{n}_loc"], self.batch_shape)
                for n in self._transforms}
         return self.from_eps(params, eps)
 
@@ -115,7 +130,8 @@ class AutoNormal(AutoGuide):
             q = Normal(params[f"{n}_loc"], torch.exp(params[f"{n}_scale_log"]))
             u = q.loc + q.scale * eps[n]
             v = t(u)
-            log_q = log_q + q.log_prob(u).sum() - t.log_abs_det_jacobian(u, v).sum()
+            log_q = log_q + sum_batched(q.log_prob(u) - t.log_abs_det_jacobian(u, v),
+                                        self.batch_shape, n)
             z[n] = v
         return z, log_q
 
@@ -138,7 +154,7 @@ class AutoDiagonalNormal(AutoGuide):
         for n in sorted(self._site_shapes):
             shape = self._site_shapes[n]
             size = shape.numel()
-            out[n] = flat[i:i + size].reshape(shape)
+            out[n] = flat[..., i:i + size].reshape(flat.shape[:-1] + shape)
             i += size
         return out
 
@@ -149,8 +165,7 @@ class AutoDiagonalNormal(AutoGuide):
                 "auto_scale_log": torch.full_like(flat, math.log(self.init_scale))}
 
     def sample_and_log_prob(self, params, rng_key):
-        return self.from_eps(params, _randn(rng_key, params["auto_loc"].shape,
-                                            params["auto_loc"]))
+        return self.from_eps(params, _draw(rng_key, params["auto_loc"], self.batch_shape))
 
     def from_eps(self, params, eps: torch.Tensor):
         """``sample_and_log_prob`` given the standard normal draws ε of the
@@ -159,10 +174,25 @@ class AutoDiagonalNormal(AutoGuide):
         uf = q.loc + q.scale * eps
         u = self._unravel(uf)
         z = constrain(self._transforms, u)
-        return z, q.log_prob(uf).sum() - transform_log_det(self._transforms, u, z)
+        return z, (sum_batched(q.log_prob(uf), self.batch_shape)
+                   - transform_log_det(self._transforms, u, z, self.batch_shape))
 
     def median(self, params):
         return constrain(self._transforms, self._unravel(params["auto_loc"]))
+
+
+def _draw(rng_key, like: torch.Tensor, batch_shape) -> torch.Tensor:
+    """Standard normal draws of ``like``'s shape: from ``rng_key``, or for a
+    batch of models, model b's slice from the b-th generator of the list."""
+    if not batch_shape:
+        return _randn(rng_key, like.shape, like)
+    return torch.stack([_randn(k, like.shape[1:], like) for k in rng_key])
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
 
 
 class Adam:
@@ -223,44 +253,58 @@ class SVI:
     def _neg_elbo(self, guide_params, model_params, rng_key, model_args, model_kwargs):
         latents, log_q = self.guide.sample_and_log_prob(guide_params, rng_key)
         log_p, _ = log_density(self.model, model_args, model_kwargs,
-                               {**latents, **model_params})
+                               {**latents, **model_params}, self.guide.batch_shape)
         return -(log_p - log_q)
 
     def _collect_model_params(self, rng_key, model_args, model_kwargs):
         """The model's ``param`` sites (e.g. the sparse GP's inducing inputs
-        Xu, ``sparse_gp.py:48``), optimized jointly with the guide's."""
+        Xu, ``sparse_gp.py:48``, or an MLE network's parameter tree),
+        optimized jointly with the guide's."""
         tr = trace(seed(self.model, rng_key)).get_trace(*model_args, **model_kwargs)
         return {n: s["init_value"] for n, s in tr.items() if s["type"] == "param"}
 
-    def run(self, rng_key: Union[torch.Generator, int], num_steps: int, *model_args,
-            progress_bar: bool = False, **model_kwargs) -> SVIRunResult:
+    def run(self, rng_key: Union[torch.Generator, int, Sequence], num_steps: int,
+            *model_args, progress_bar: bool = False, **model_kwargs) -> SVIRunResult:
         """``num_steps`` Adam steps on the negative ELBO, on the device of the
         model's tensor arguments. ``rng_key`` is a CPU generator or a seed;
         the guide's initial draw and the steps' draws come from generators
         spawned from it on that device. Returns the final parameters (guide
-        and model params in one dict), the state and the per-step losses."""
+        and model params in one dict), the state and the per-step losses.
+
+        A list of B keys fits B models at once (see the module docstring):
+        the parameters lead with B, and the losses are (B, num_steps)."""
         device = _data_device(model_args, model_kwargs)
-        k_init, k_steps = spawn(rng_key, device), spawn(rng_key, device)
-        guide_params = self.guide.init_params(k_init, model_args, model_kwargs)
-        model_params = self._collect_model_params(k_init, model_args, model_kwargs)
-        params = {"guide": guide_params, "model": model_params}
-        for group in params.values():
-            for k, v in group.items():
-                group[k] = v.detach().clone().requires_grad_(True)
-        leaves = [v for group in params.values() for v in group.values()]
-        opt = self.optim(leaves)
+        batched = isinstance(rng_key, (list, tuple))
+        keys = list(rng_key) if batched else [rng_key]
+        k_init = [spawn(k, device) for k in keys]
+        k_steps = [spawn(k, device) for k in keys]
+        batch = (len(keys),) if batched else ()
+        self.guide.batch_shape = ()
+        inits = [self.guide.init_params(k, model_args, model_kwargs) for k in k_init]
+        guide_params = {n: torch.stack([p[n] for p in inits]) if batched else inits[0][n]
+                        for n in inits[0]}
+        model_params = tree_map(lambda v: torch.as_tensor(v, device=device).expand(
+            batch + tuple(torch.as_tensor(v).shape)),
+            self._collect_model_params(k_init[0], model_args, model_kwargs))
+        self.guide.batch_shape = batch
+        params = {"guide": tree_map(lambda v: v.detach().clone().requires_grad_(True),
+                                     guide_params),
+                  "model": tree_map(lambda v: v.detach().clone().requires_grad_(True),
+                                     model_params)}
+        opt = self.optim(_tree_leaves(params))
+        step_key = k_steps if batched else k_steps[0]
         n_particles = self.loss.num_particles
-        losses = torch.empty(num_steps, device=device)
+        losses = torch.empty(batch + (num_steps,), device=device)
         for i in range(num_steps):
             opt.zero_grad(set_to_none=True)
-            loss = sum(self._neg_elbo(params["guide"], params["model"], k_steps,
+            loss = sum(self._neg_elbo(params["guide"], params["model"], step_key,
                                       model_args, model_kwargs)
                        for _ in range(n_particles)) / n_particles
-            loss.backward()
+            loss.sum().backward()
             opt.step()
-            losses[i] = loss.detach()
-        final = {k: {n: v.detach() for n, v in g.items()} for k, g in params.items()}
-        state = SVIState(final, opt.state_dict(), k_steps)
+            losses[..., i] = loss.detach()
+        final = tree_map(lambda v: v.detach(), params)
+        state = SVIState(final, opt.state_dict(), step_key)
         return SVIRunResult(self.get_params(state), state, losses)
 
     def get_params(self, state: SVIState) -> Dict:

@@ -225,16 +225,36 @@ class block(Messenger):
             msg["_blocked"] = True
 
 
+def sum_batched(x: torch.Tensor, batch_shape=(), name: str = "") -> torch.Tensor:
+    """Sum of ``x`` over every dim after the leading ``batch_shape``: one
+    value per model of a batch (a scalar for ``batch_shape=()``). A 0-d
+    ``x`` is returned as it is, to broadcast; any other ``x`` must lead with
+    ``batch_shape``."""
+    x = torch.as_tensor(x)
+    k = len(batch_shape)
+    if k == 0 or x.ndim == 0:
+        return x.sum()
+    if tuple(x.shape[:k]) != tuple(batch_shape):
+        raise ValueError(f"site '{name}': a log-probability of shape {tuple(x.shape)} "
+                         f"does not lead with the batch shape {tuple(batch_shape)}")
+    return x.sum(tuple(range(k, x.ndim))) if x.ndim > k else x
+
+
 def log_density(model: Callable, model_args=(), model_kwargs=None,
-                params: Optional[Dict] = None):
+                params: Optional[Dict] = None, batch_shape=()):
     """Sum of log-probabilities of all sample and factor sites given latent
-    values. Returns ``(log_joint, trace)``."""
+    values. Returns ``(log_joint, trace)``. With a ``batch_shape``, the
+    latents carry it as leading dims (one set per model of a batch) and the
+    log joint has that shape, each model's own."""
     model_kwargs = model_kwargs or {}
     sites = trace(substitute(model, data=params or {})).get_trace(*model_args, **model_kwargs)
     log_joint = torch.zeros(())
-    for site in sites.values():
+    for name, site in sites.items():
         if site["type"] == "sample":
-            log_joint = log_joint + site["fn"].log_prob(site["value"]).sum()
+            lp = site["fn"].log_prob(site["value"])
         elif site["type"] == "factor":
-            log_joint = log_joint + torch.as_tensor(site["value"]).sum()
+            lp = site["value"]
+        else:
+            continue
+        log_joint = log_joint + sum_batched(lp, batch_shape, name)
     return log_joint, sites

@@ -12,7 +12,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..distributions import biject_to
-from .core import log_density, seed, substitute, trace
+from .core import log_density, seed, substitute, sum_batched, trace
 
 
 class ModelInfo(NamedTuple):
@@ -50,10 +50,13 @@ def unconstrain(transforms: Dict, constrained: Dict) -> Dict:
     return {k: transforms[k].inv(v) for k, v in constrained.items()}
 
 
-def transform_log_det(transforms: Dict, unconstrained: Dict, constrained: Dict):
+def transform_log_det(transforms: Dict, unconstrained: Dict, constrained: Dict,
+                      batch_shape=()):
+    """Σ log|det J| of the transforms, one value per model of a batch."""
     out = torch.zeros(())
     for k, z in unconstrained.items():
-        out = out + transforms[k].log_abs_det_jacobian(z, constrained[k]).sum()
+        out = out + sum_batched(transforms[k].log_abs_det_jacobian(z, constrained[k]),
+                                batch_shape, k)
     return out
 
 

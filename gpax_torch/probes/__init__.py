@@ -4,5 +4,6 @@
     python -m gpax_torch.probes.svi_step_profile   # where an SVI step's time goes
     python -m gpax_torch.probes.mtgp_divergences   # config 4's fit across seeds; its leapfrog
 
-They are not imported by the package.
+``configs`` holds BASELINE configs 4 and 5's data and fit settings, which
+they and ``chip_smoke.py`` share. They are not imported by the package.
 """

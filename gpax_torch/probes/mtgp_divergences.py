@@ -1,9 +1,10 @@
 """chip_smoke.py's config 4 fit across seeds, and where its leapfrog's time
 goes.
 
-Fits chip_smoke.py's config 4 phase (its data, ``MultiTaskGP(1, "Matern",
-num_latents=1, num_tasks=2)`` and its fit settings: 200 + 200 draws,
-segments of 50, tree depth 8, warmup depth cap (5, 20), target accept 0.7)
+Fits chip_smoke.py's config 4 phase (``configs.config4_data``,
+``MultiTaskGP(1, "Matern", num_latents=1, num_tasks=2)`` and its fit
+settings from ``configs``: 200 + 200 draws, segments of 50, tree depth 8,
+warmup depth cap (5, 20), target accept 0.7)
 on the card for each seed of ``--seeds`` (seed s fits with
 ``get_keys(s)[0]``, as chip_smoke.py fits with seed 0) and prints a JSON
 line per fit: wall s, leapfrogs, mean accept of the draws, divergences, the
@@ -14,8 +15,7 @@ task covariance), and the mean |W| of the divergent draws.
 With ``--leapfrog``, it then times the potential and its gradient (one
 leapfrog's work) at the last fit's last draw: the host clock per
 evaluation ending in a synchronize, and under ``torch.profiler`` the device
-time and the number of kernels an evaluation. Run from the repository root
-(it imports ``chip_smoke``):
+time and the number of kernels an evaluation:
 
     python -m gpax_torch.probes.mtgp_divergences --seeds 0 1 2 3 4 --leapfrog --out FILE
 
@@ -33,27 +33,27 @@ import time
 
 import torch
 
-import chip_smoke as cs
 import gpax_torch
 from gpax_torch.infer.nuts import ravel
 from gpax_torch.ppl import initialize_model
 from gpax_torch.ppl.util import unconstrain
+from gpax_torch.probes import configs
 from gpax_torch.utils import get_keys
 
 
 def fit(seed: int) -> tuple:
-    X, y = cs.config4_data()
+    X, y = configs.config4_data()
     model = gpax_torch.MultiTaskGP(1, "Matern", num_latents=1, num_tasks=2)
     t0 = time.perf_counter()
-    model.fit(get_keys(seed)[0], X, y, num_warmup=cs.MT_WARMUP, num_samples=cs.MT_SAMPLES,
-              segment_size=cs.MT_SEGMENT, max_tree_depth=cs.MT_DEPTH,
-              warmup_depth_cap=cs.MT_DEPTH_CAP, target_accept_prob=cs.MT_TARGET,
+    model.fit(get_keys(seed)[0], X, y, num_warmup=configs.MT_WARMUP, num_samples=configs.MT_SAMPLES,
+              segment_size=configs.MT_SEGMENT, max_tree_depth=configs.MT_DEPTH,
+              warmup_depth_cap=configs.MT_DEPTH_CAP, target_accept_prob=configs.MT_TARGET,
               print_summary=False, progress_bar=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = model.mcmc.get_extra_fields()
     s = model.get_samples()
-    num_samples = cs.MT_SAMPLES
+    num_samples = configs.MT_SAMPLES
     W = s["W"].reshape(num_samples, -1)
     div = st["diverging"].to(W.device)
     return model, {

@@ -1,9 +1,12 @@
-"""Where one SVI step of gpax_torch's viSparseGP (or viGP) spends its time.
+"""Where one SVI step of gpax_torch's viSparseGP (or viGP, or viDKL) spends
+its time.
 
 Fits bench.py's config-3 data (viSparseGP RBF, inducing ratio 0.05
-"uniform", Adam 5e-3; ``--n 20000`` for the m = 1000 phase) or, with
-``--model vigp``, config 2's image (viGP Matérn, Adam 0.05) through the
-model's own ``fit``, and measures
+"uniform", Adam 5e-3; ``--n 20000`` for the m = 1000 phase), with
+``--model vigp`` config 2's image (viGP Matérn, Adam 0.05), or with
+``--model vidkl`` config 5's 8-model ensemble (viDKL, d = 784, 256 points,
+Adam 5e-3; ``configs.config5_data``)
+through ``fit_predict`` on 8 of its points, and measures
 
 - the host clock per step: the difference of two fits of ``--warmup`` and
   ``--warmup + --steps`` steps, each ending in ``torch.cuda.synchronize()``;
@@ -20,6 +23,7 @@ than one step's work.
     python -m gpax_torch.probes.svi_step_profile                      # config 3 on the card
     python -m gpax_torch.probes.svi_step_profile --n 20000 --steps 50
     python -m gpax_torch.probes.svi_step_profile --model vigp
+    python -m gpax_torch.probes.svi_step_profile --model vidkl --warmup 20 --steps 50
 
 The last line is one JSON object with every number; ``--out FILE`` also
 writes it there.
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 import gpax_torch
+from gpax_torch.probes.configs import VIDKL_D, VIDKL_MODELS, config5_data
 from gpax_torch.utils import get_keys, preprocess_sparse_image
 
 GROUPS = (("K1 gram", ("gram_kernel",)), ("K2 tile_tri_inv", ("tile_tri_inv_kernel",)),
@@ -59,6 +64,20 @@ def fitter(model_name: str, n: int):
     """(model, fit(num_steps)) on bench.py's data for that model."""
     rng = np.random.default_rng(0)
     key = get_keys(0)[0]
+    if model_name == "vidkl":
+        X_pool, y_pool, measured, _ = config5_data()
+        X, y = X_pool[measured], y_pool[measured].astype(np.float32)
+        model = gpax_torch.viDKL(VIDKL_D, z_dim=2, kernel="RBF")
+
+        def fit(num_steps: int) -> float:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.fit_predict(key, X, y, X[:8], num_steps=num_steps, n_models=VIDKL_MODELS,
+                              progress_bar=False, print_summary=False)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        return model, fit
     if model_name == "vigp":
         xx, yy = np.meshgrid(np.arange(128), np.arange(128))
         truth = np.sin(xx / 16.0) * np.cos(yy / 21.0) + 1.5
@@ -84,7 +103,7 @@ def fitter(model_name: str, n: int):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("visparsegp", "vigp"), default="visparsegp")
+    ap.add_argument("--model", choices=("visparsegp", "vigp", "vidkl"), default="visparsegp")
     ap.add_argument("--n", type=int, default=2000)
     ap.add_argument("--warmup", type=int, default=50)
     ap.add_argument("--steps", type=int, default=100)

@@ -12,6 +12,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .utils import resolve_device, tree_map
+
 
 def samples_from_numpy(samples: Dict[str, np.ndarray], device=None,
                        dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
@@ -45,3 +47,27 @@ def load_vi_state(model, state: Dict[str, object], device=None) -> None:
     model._set_training_data(device=device)
     model._restored_median = samples_from_numpy(state["median"], model.X_train.device,
                                                 model.dtype)
+
+
+def vidkl_state_from_jax(model) -> Dict[str, object]:
+    """The fitted state of a ``gpax_tpu`` ``viDKL`` or ``viMTDKL`` as numpy
+    arrays: ``{"nn_params": the network's nested dict, "kernel_params",
+    "X_train", "y_train"}``, each with any leading ensemble or channel dim
+    it has."""
+    return {"nn_params": tree_map(np.array, model.nn_params),
+            "kernel_params": tree_map(np.array, model.kernel_params),
+            "X_train": np.array(model.X_train), "y_train": np.array(model.y_train)}
+
+
+def load_vidkl_state(model, state: Dict[str, object], device=None) -> None:
+    """Give a port ``viDKL`` or ``viMTDKL`` the state of
+    :func:`vidkl_state_from_jax` on ``device`` (None: the CUDA card), after
+    which it predicts and embeds as the JAX model does."""
+    dev = resolve_device(device)
+
+    def tensor(v):
+        return torch.as_tensor(np.asarray(v), dtype=model.dtype, device=dev)
+
+    model.X_train, model.y_train = tensor(state["X_train"]), tensor(state["y_train"])
+    model.nn_params = tree_map(tensor, state["nn_params"])
+    model.kernel_params = tree_map(tensor, state["kernel_params"])

@@ -5,14 +5,15 @@ images."""
 
 from __future__ import annotations
 
-from typing import List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 __all__ = ["get_keys", "spawn", "resolve_device", "split_in_batches",
            "device_memory_budget", "host_bool", "host_syncs", "reset_host_syncs",
-           "initialize_inducing_points", "preprocess_sparse_image"]
+           "initialize_inducing_points", "preprocess_sparse_image", "get_haiku_dict",
+           "tree_map"]
 
 _MAX_SEED = 2**62
 
@@ -131,6 +132,30 @@ def initialize_inducing_points(X: torch.Tensor, ratio: float = 0.1, method: str 
         centers = KMeans(n_clusters=m, random_state=0, n_init="auto").fit(X.cpu().numpy())
         return torch.as_tensor(centers.cluster_centers_, dtype=X.dtype, device=X.device)
     raise ValueError("Method must be 'uniform', 'random', or 'kmeans'")
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every leaf of a nested dict (a network's parameters, or a
+    param site that holds them)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def get_haiku_dict(kernel_params: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """Regroup the flat 'feature_extractor/<module>/<param>' SVI parameters
+    into the nested ``{module: {param: ...}}`` tree that ``Module.apply``
+    takes (``utils.py:66-80``), nesting by every remaining part of the path;
+    other entries are dropped."""
+    out: Dict[str, Dict] = {}
+    for key, val in kernel_params.items():
+        if key.startswith("feature_extractor/"):
+            parts = key.split("/")[1:]
+            node = out
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = val
+    return out
 
 
 def preprocess_sparse_image(sparse_image: np.ndarray):

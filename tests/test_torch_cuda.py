@@ -498,3 +498,48 @@ def test_exactgp_fit_on_the_fused_route_on_card(dev):
     Xn = torch.linspace(-2, 2, 100, device=dev)[:, None]
     mean, _ = gp.predict(1, Xn, noiseless=True)
     assert ((mean - torch.sin(2 * Xn[:, 0])) ** 2).mean().sqrt().item() < 0.05
+
+
+def test_batched_mvn_route_launches_k2_once_for_the_batch(dev):
+    """A (B, n, n) covariance goes through ``mvn_log_prob_centered``: one K2
+    launch for every diagonal tile of the batch, a log-density per matrix
+    equal to the CPU's, and the closed-form backward."""
+    Ks = torch.stack([_spd_batch(1, 200, dev, torch.float32, seed=s)[0] for s in range(3)])
+    diff = torch.randn((3, 200), generator=torch.Generator(device=dev).manual_seed(1),
+                       device=dev)
+    out = []
+    for device in ("cpu", dev):
+        K = Ks.to(device).requires_grad_(True)
+        k2 = chol.launches
+        lp = gpax_torch.distributions.MultivariateNormal(
+            torch.zeros(200, device=device), covariance_matrix=K).log_prob(diff.to(device))
+        if device != "cpu":
+            assert chol.launches == k2 + 1
+        assert lp.shape == (3,)
+        (g,) = torch.autograd.grad(lp.sum(), K)
+        out.append((lp.detach().cpu(), g.cpu()))
+    (l0, g0), (l1, g1) = out
+    assert (l1 - l0).abs().max() <= 1e-4 * l0.abs().max()
+    assert (g1 - g0).abs().max() <= 1e-4 * g0.abs().max()
+
+
+def test_vidkl_ensemble_step_launches_k1_once_for_all_models(dev):
+    """viDKL's batched ensemble: each SVI step makes ONE K1 launch for the
+    B models' grams (and one K2 launch and one host sync for their factors),
+    so two fits differing by 5 steps differ by 5 of each."""
+    from gpax_torch.utils import host_syncs, reset_host_syncs
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(64, 20)).astype(np.float32)
+    y = np.sin(X[:, 0]).astype(np.float32)
+    seen = []
+    for steps in (5, 10):
+        model = gpax_torch.viDKL(20, z_dim=2)
+        k1, k2 = gram.launches, chol.launches
+        reset_host_syncs()
+        model.fit_predict(0, X, y, X[:4], num_steps=steps, n_models=3, print_summary=False,
+                          progress_bar=False)
+        torch.cuda.synchronize()
+        seen.append((gram.launches - k1, chol.launches - k2, host_syncs()))
+        assert model.loss.shape == (3, steps) and bool(torch.isfinite(model.loss).all())
+    assert [b - a for a, b in zip(*seen)] == [5, 5, 5]
