@@ -58,7 +58,25 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    twins, the library calls and the pair against the composed factor;
 10. drives the same fit on the fused route (``use_fused_likelihood=
     "always"``), with the main path's limits, its posterior means within 4
-    posterior sd of the composed fit's, and K1/K2 launches counted;
+    posterior sd of the composed fit's, and K1/K2 launches counted; then
+    the same data with 2 chains in lockstep (``num_chains=2,
+    chain_method="vectorized"``, segments of 50, 100 + 100 draws, depth
+    7, the route "auto" takes: fused), printing lockstep and chain leapfrogs,
+    ms a lockstep leapfrog beside the single-chain fused fit's ms a
+    leapfrog, chain draws/s, host syncs a lockstep leapfrog, K1/K2
+    launches and each site's R-hat, and checking one K1 and one K2 launch
+    a lockstep leapfrog (not one a chain), at most 2.5 host syncs a
+    lockstep leapfrog, accept, divergences, R-hat < 1.1, each chain's
+    means within 4 sd of the fused fit's and the pooled predict's RMSE,
+    with K1 and K2 held against their twins on the (2, 4096, 4096) gram
+    and float64 factors of the chains' last draws; then vExactGP (4 tasks
+    × 1024 points, 2 lockstep chains, 100 + 100, depth 7), its launches
+    counted and K1/K2 held against their twins on its (2·4, 1024, 1024)
+    grams and factors; then VarNoiseGP and UIGP (n = 128, 50 + 50, depth
+    6), MeasuredNoiseGP (n = 256, 100 + 100, noise predicted by LinReg and
+    by viGP), iBNN (n = 512, d = 8, 100 + 100, depth 7) and vi_iBNN (n =
+    2048, d = 8, 500 steps), each fitted and predicted with its seconds,
+    leapfrogs or steps, divergences, K1/K2 launches and finite outputs;
 11. drives the viSparseGP path at BASELINE config 3 (bench.py's data and
     settings: n = 2000, inducing ratio 0.05 "uniform" so m = 100, 3000 SVI
     steps of 5e-3, then ``predict_in_batches`` on 2001 points in batches of
@@ -257,6 +275,29 @@ DKL_WARMUP, DKL_SAMPLES, DKL_DEPTH = 50, 50, 5
 # draw, so it takes 20 + 20 draws
 MTDKL_N0, MTDKL_N1, MTDKL_D, MTDKL_STEPS = 200, 100, 5, 300
 BNN_N, BNN_HIDDEN, BNN_WARMUP, BNN_SAMPLES = 300, [8, 4], 20, 20
+
+# lockstep chains on the main path's data, "vectorized" in segments of
+# 50 at the main path's draws and depth and on the route "auto" takes
+# (fused), cut from 4 chains to 2 (NVIDIA H100 80GB HBM3, 700.00 W): 4
+# chains at 100 + 100 took 239 s of a 1305 s run, device-bound at 41 ms a
+# lockstep leapfrog; at 50 + 50 they took 199 s (50 warmup steps hold no
+# mass window, so trees ran 3x longer) and k_scale's R-hat reached 1.100
+LOCK_CHAINS, LOCK_SEGMENT = 2, 50
+LOCK_WARMUP, LOCK_SAMPLES = NUM_WARMUP, NUM_SAMPLES
+LOCK_RHAT_MAX = 1.1
+# launches of K1 and K2 outside the tree's lockstep leapfrogs: the model's
+# trace in initialize_model, the potential at the start and the doublings
+# of the step-size search (at most ~10 a run here)
+LOCK_EXTRA_LAUNCHES = 30
+LOCK_SYNCS_MAX = 2.5  # host syncs per lockstep leapfrog
+# vExactGP: 4 tasks of 1024 points, 2 lockstep chains
+VGP_TASKS, VGP_N, VGP_CHAINS = 4, 1024, 2
+# the slice-6 models: (n, warmup, samples, depth) of each NUTS fit
+VARNOISE_FIT = (128, 50, 50, 6)
+UIGP_FIT = (128, 50, 50, 6)
+MNGP_FIT = (256, 100, 100)        # MeasuredNoiseGP.fit has no depth option: 10
+IBNN_FIT = (512, 8, 100, 100, 7)  # n, d, warmup, samples, depth
+VIIBNN_FIT = (2048, 8, 500)       # n, d, SVI steps
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
 # bytes/s, and the highest FLOP/s the card offers for each dtype without a
@@ -1025,7 +1066,7 @@ def main_path(dev, mode: str) -> dict:
         fail(f"posterior RMSE {rmse} > 0.03")
     launched = {"fit": fit_launch, "predict": pred_launch}
     require_launches("ExactGP", launched, ("gram", "trtri"))
-    return launched, gp, chunk
+    return launched, gp, chunk, summary
 
 
 def check_main_shapes(gp, chunk: int) -> None:
@@ -1104,6 +1145,299 @@ def panel_path(gp):
     del grams, K
     torch.cuda.empty_cache()
     return launched, worst, timing
+
+
+def lockstep_path(dev, fused: dict, fused_summary: dict):
+    """The main path's fit with LOCK_CHAINS chains in lockstep
+    ("vectorized", segments of LOCK_SEGMENT) on the route "auto" takes
+    (fused at n = 4096), then predict on the pooled draws: one K1 and one
+    K2 launch per lockstep leapfrog for all chains, host syncs, R-hat, and
+    each chain's means against the single-chain fused fit's."""
+    X_np, y_np = bench_data(N_MAIN)
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    k_fit, k_pred = get_keys(0)
+    gp = gpax_torch.ExactGP(1, "RBF")
+    reset_counts()
+    reset_host_syncs()
+    t0 = time.perf_counter()
+    gp.fit(k_fit, X, y, num_warmup=LOCK_WARMUP, num_samples=LOCK_SAMPLES,
+           num_chains=LOCK_CHAINS, chain_method="vectorized", segment_size=LOCK_SEGMENT,
+           max_tree_depth=MAX_DEPTH, print_summary=False, progress_bar=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    syncs = host_syncs()
+    fit_launch = counts()
+    mcmc = gp.mcmc
+    lockstep, chain_leapfrogs = mcmc.num_lockstep_leapfrogs, mcmc.num_leapfrogs
+    by_chain = gp.get_samples(chain_dim=True)
+    stats = mcmc.get_extra_fields(group_by_chain=True)
+    accept = stats["accept_prob"].mean().item()
+    divergences = int(stats["diverging"].sum())
+    rhat = {k: float(np.max(gpax_torch.infer.gelman_rubin(v.float()))) for k, v in by_chain.items()}
+    X_new = torch.linspace(-2, 2, PREDICT_M, device=dev)[:, None]
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, draws = gp.predict_in_batches(k_pred, X_new, batch_size=PREDICT_BATCH, noiseless=True)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_launch = counts()
+    rmse = float(np.sqrt(np.mean((mean.numpy() - np.sin(2 * X_new[:, 0].cpu().numpy())) ** 2)))
+    summary = {
+        "n": N_MAIN, "chains": LOCK_CHAINS, "segment_size": LOCK_SEGMENT,
+        "num_warmup": LOCK_WARMUP, "num_samples": LOCK_SAMPLES, "max_tree_depth": MAX_DEPTH,
+        "route": "fused" if gp._fused_likelihood_ok(X, {"k_length": None, "k_scale": None})
+        else "composed",
+        "fit_s": fit_s, "lockstep_leapfrogs": lockstep, "chain_leapfrogs": chain_leapfrogs,
+        "ms_per_lockstep_leapfrog": 1e3 * fit_s / max(lockstep, 1),
+        "single_chain_fused_ms_per_leapfrog": fused_summary["ms_per_leapfrog"],
+        "chain_draws_per_s": LOCK_CHAINS * LOCK_SAMPLES / fit_s,
+        "host_syncs": syncs, "host_syncs_per_lockstep_leapfrog": syncs / max(lockstep, 1),
+        "accept_mean": accept, "divergences": divergences, "rhat": rhat,
+        "timing": mcmc.timing, "predict_s": pred_s, "posterior_rmse": rmse,
+        "chain_means": {k: v.float().reshape(LOCK_CHAINS, LOCK_SAMPLES, -1).mean(1).tolist()
+                        for k, v in by_chain.items()},
+        "launches_fit": fit_launch, "launches_predict": pred_launch,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("ExactGP lockstep chains: " + json.dumps(summary), flush=True)
+    for k in ("gram", "trtri"):
+        if not lockstep <= fit_launch[k] <= lockstep + LOCK_EXTRA_LAUNCHES:
+            fail(f"lockstep fit: {fit_launch[k]} {k} launches for {lockstep} lockstep "
+                 f"leapfrogs (one each, plus at most {LOCK_EXTRA_LAUNCHES})")
+    if not syncs / max(lockstep, 1) <= LOCK_SYNCS_MAX:
+        fail(f"lockstep fit: {syncs / lockstep:.2f} host syncs per lockstep leapfrog")
+    if not all(bool(torch.isfinite(v).all()) for v in by_chain.values()):
+        fail("lockstep fit: non-finite posterior samples")
+    if not 0.5 <= accept <= 0.99:
+        fail(f"lockstep fit: mean accept {accept} outside [0.5, 0.99]")
+    if divergences > 0.05 * LOCK_CHAINS * LOCK_SAMPLES:
+        fail(f"lockstep fit: {divergences} divergences in {LOCK_CHAINS * LOCK_SAMPLES} draws")
+    if not max(rhat.values()) < LOCK_RHAT_MAX:
+        fail(f"lockstep fit: R-hat {rhat}")
+    for site in ("k_length", "k_scale", "noise"):
+        ref, sd = fused[site].float().mean().item(), fused[site].float().std().item() + 1e-6
+        for c in range(LOCK_CHAINS):
+            m = by_chain[site][c].float().mean().item()
+            if not abs(m - ref) < FUSED_SD * sd:
+                fail(f"lockstep chain {c}: posterior mean of {site} {m} is off the "
+                     f"single-chain fused fit's {ref} (sd {sd})")
+    if not (mean.shape == (PREDICT_M,) and draws.shape == (LOCK_CHAINS * LOCK_SAMPLES, 1, PREDICT_M)
+            and bool(torch.isfinite(mean).all()) and bool(torch.isfinite(draws).all())):
+        fail(f"lockstep predict: shapes {tuple(mean.shape)}, {tuple(draws.shape)} or non-finite")
+    if not rmse <= 0.03:
+        fail(f"lockstep predict: RMSE {rmse} > 0.03")
+    launched = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("ExactGP lockstep", launched, ("gram", "trtri"))
+    return launched, gp
+
+
+def check_lockstep_shapes(gp) -> None:
+    """K1 and K2 against their twins on the lockstep fit's own inputs: the
+    (C, n, n) gram of the chains' last draws, as the fused op builds it
+    (noise_eff with the jitter and base regularization, over k_scale), and
+    its float64 factors."""
+    X = gp.X_train
+    n = X.shape[0]
+    last = {k: v[:, -1] for k, v in gp.get_samples(chain_dim=True).items()}
+    jitter = gpax_torch.get_config().default_jitter
+    noise_eff = last["noise"] + jitter + 4.0 * n * torch.finfo(torch.float32).eps
+    Xs = (X / last["k_length"][:, None, :]).contiguous()
+    nz = noise_eff[:, None].expand(LOCK_CHAINS, n).contiguous()
+    k1_compare(f"lockstep fit gram B={LOCK_CHAINS} {n}x{n}", Xs, Xs,
+               (nz / last["k_scale"][:, None]).contiguous(), True)
+    K = last["k_scale"][:, None, None] * gram.gram_unscaled(Xs, Xs, nz, "rbf", False)
+    K.diagonal(dim1=-2, dim2=-1).add_(nz)
+    L, W, _ = linalg._chol_tri_factors_ld(K, None)
+    del K
+    k2_compare(f"float64 factors of the lockstep fit's grams B={LOCK_CHAINS} n={n}", L, W,
+               1e-7, 1e-6)
+    del L, W
+    torch.cuda.empty_cache()
+
+
+def vexact_data():
+    """VGP_TASKS tasks of VGP_N points, each a shifted sine plus noise."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-2, 2, (VGP_TASKS, VGP_N)).astype(np.float32)
+    shift = np.arange(VGP_TASKS, dtype=np.float32)[:, None] * 0.5
+    f = np.sin(2 * X + shift)
+    return X, f, (f + 0.1 * rng.normal(size=X.shape)).astype(np.float32)
+
+
+def vexact_path(dev) -> dict:
+    """vExactGP on VGP_TASKS × VGP_N points with VGP_CHAINS lockstep chains
+    (the main path's draws and depth), then predict on the training inputs;
+    K1 and K2 against their twins on the (chains·tasks, n, n) grams and
+    float64 factors of the chains' last draws."""
+    X, f, y = vexact_data()
+    k_fit, k_pred = get_keys(0)
+    model = gpax_torch.vExactGP(1, "RBF")
+    reset_host_syncs()
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES, num_chains=VGP_CHAINS,
+        chain_method="vectorized", max_tree_depth=MAX_DEPTH, print_summary=False,
+        progress_bar=False))
+    syncs = host_syncs()
+    mcmc = model.mcmc
+    stats = mcmc.get_extra_fields()
+    X_new = np.linspace(-2, 2, 256, dtype=np.float32)[None].repeat(VGP_TASKS, 0)
+    (mean, draws), pred_s, pred_launch = timed(lambda: model.predict(k_pred, X_new,
+                                                                     noiseless=True))
+    truth = np.sin(2 * X_new + np.arange(VGP_TASKS, dtype=np.float32)[:, None] * 0.5)
+    rmse = np.sqrt(np.mean((mean.cpu().numpy() - truth) ** 2, axis=1)).tolist()
+    by_chain = model.get_samples(chain_dim=True)
+    summary = {"tasks": VGP_TASKS, "n": VGP_N, "chains": VGP_CHAINS, "fit_s": fit_s,
+               "lockstep_leapfrogs": mcmc.num_lockstep_leapfrogs,
+               "chain_leapfrogs": mcmc.num_leapfrogs,
+               "ms_per_lockstep_leapfrog": 1e3 * fit_s / max(mcmc.num_lockstep_leapfrogs, 1),
+               "host_syncs_per_lockstep_leapfrog": syncs / max(mcmc.num_lockstep_leapfrogs, 1),
+               "accept_mean": stats["accept_prob"].mean().item(),
+               "divergences": int(stats["diverging"].sum()), "predict_s": pred_s,
+               "task_rmse": rmse,
+               "rhat": {k: float(np.max(gpax_torch.infer.gelman_rubin(v.float())))
+                        for k, v in by_chain.items()},
+               "launches": {"fit": fit_launch, "predict": pred_launch}}
+    print(f"vExactGP lockstep chains: {json.dumps(summary)}", flush=True)
+    if mean.shape != (VGP_TASKS, 256) or draws.shape != (VGP_CHAINS * NUM_SAMPLES, 1,
+                                                         VGP_TASKS, 256) \
+            or not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(draws).all())):
+        fail(f"vExactGP: predictions of shape {tuple(mean.shape)}, {tuple(draws.shape)} "
+             "or non-finite")
+    lock = mcmc.num_lockstep_leapfrogs
+    for k in ("gram", "trtri"):
+        if not lock <= fit_launch[k] <= lock + LOCK_EXTRA_LAUNCHES:
+            fail(f"vExactGP: {fit_launch[k]} {k} launches for {lock} lockstep leapfrogs")
+    last = {k: v[:, -1] for k, v in by_chain.items()}            # (chains, tasks, …)
+    Xt = model.X_train                                           # (tasks, n, 1)
+    B = VGP_CHAINS * VGP_TASKS
+    Xs = (Xt / last["k_length"][..., None, :]).reshape(B, VGP_N, 1).contiguous()
+    jitter = gpax_torch.get_config().default_jitter
+    nz = ((last["noise"] + jitter) / last["k_scale"]).reshape(B, 1).expand(B, VGP_N).contiguous()
+    k1_compare(f"vExactGP fit grams B={B} {VGP_N}x{VGP_N}", Xs, Xs, nz, True)
+    K = model.kernel(Xt, Xt, last, last["noise"])
+    L, W, _ = linalg._chol_tri_factors_ld(K)
+    k2_compare(f"float64 factors of vExactGP's grams B={B} n={VGP_N}", L.reshape(B, VGP_N, VGP_N),
+               W.reshape(B, VGP_N, VGP_N), 1e-7, 1e-6)
+    launched = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("vExactGP", launched, ("gram", "trtri"))
+    return launched
+
+
+def _nuts_summary(name: str, model, fit_s: float, fit_launch: dict, extra: dict) -> dict:
+    stats = model.mcmc.get_extra_fields()
+    summary = {"fit_s": fit_s, "leapfrogs": model.mcmc.num_leapfrogs,
+               "ms_per_leapfrog": 1e3 * fit_s / max(model.mcmc.num_leapfrogs, 1),
+               "accept_mean": stats["accept_prob"].mean().item(),
+               "divergences": int(stats["diverging"].sum()), "launches_fit": fit_launch,
+               **extra}
+    print(f"{name}: {json.dumps(summary)}", flush=True)
+    return summary
+
+
+def _require_finite(name: str, *tensors) -> None:
+    if not all(bool(torch.isfinite(t).all()) for t in tensors):
+        fail(f"{name}: non-finite outputs")
+
+
+def slice6_paths() -> dict:
+    """VarNoiseGP, UIGP, MeasuredNoiseGP (both noise predictions), iBNN and
+    vi_iBNN: each fitted and predicted on the card, with seconds, leapfrogs
+    or steps, divergences, K1/K2 launches and finite outputs."""
+    rng = np.random.default_rng(0)
+    paths = {}
+    key_fit, key_pred = get_keys(0)
+
+    n, warm, draws_n, depth = VARNOISE_FIT
+    X = rng.uniform(-1, 1, n).astype(np.float32)
+    y = (np.sin(3 * X) + np.abs(X) * rng.normal(0, 0.3, n)).astype(np.float32)
+    model = gpax_torch.VarNoiseGP(1, "RBF")
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X, y, num_warmup=warm, num_samples=draws_n, max_tree_depth=depth,
+        print_summary=False, progress_bar=False))
+    (mean, draws), pred_s, pred_launch = timed(
+        lambda: model.predict(key_pred, np.linspace(-1, 1, 256, dtype=np.float32)))
+    var = model.get_data_var_samples()
+    _nuts_summary("VarNoiseGP", model, fit_s, fit_launch,
+                  {"n": n, "predict_s": pred_s, "launches_predict": pred_launch,
+                   "data_var_mean": var.mean().item()})
+    _require_finite("VarNoiseGP", mean, draws, var)
+    paths["VarNoiseGP"] = {"fit": fit_launch, "predict": pred_launch}
+
+    n, warm, draws_n, depth = UIGP_FIT
+    X = np.sort(rng.uniform(0, 1, n)).astype(np.float32)
+    X = (X - X.min()) / (X.max() - X.min())  # the default sigma_x prior's (0, 1)
+    y = (np.sin(5 * X) + 0.05 * rng.normal(size=n)).astype(np.float32)
+    model = gpax_torch.UIGP(1, "RBF")
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X, y, num_warmup=warm, num_samples=draws_n, max_tree_depth=depth,
+        print_summary=False, progress_bar=False))
+    (mean, draws), pred_s, pred_launch = timed(
+        lambda: model.predict(key_pred, np.linspace(0, 1, 256, dtype=np.float32), n=2))
+    _nuts_summary("UIGP", model, fit_s, fit_launch,
+                  {"n": n, "predict_s": pred_s, "launches_predict": pred_launch,
+                   "sigma_x_mean": model.get_samples()["sigma_x"].mean().item()})
+    _require_finite("UIGP", mean, draws)
+    paths["UIGP"] = {"fit": fit_launch, "predict": pred_launch}
+
+    n, warm, draws_n = MNGP_FIT
+    X = rng.uniform(-1, 1, n).astype(np.float32)
+    noise = (0.01 + 0.04 * (X + 1) / 2).astype(np.float32)  # measured, growing with x
+    y = (np.sin(3 * X) + np.sqrt(noise) * rng.normal(size=n)).astype(np.float32)
+    model = gpax_torch.MeasuredNoiseGP(1, "RBF")
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X, y, noise, num_warmup=warm, num_samples=draws_n, print_summary=False,
+        progress_bar=False))
+    launched = {"fit": fit_launch}
+    extra = {"n": n}
+    X_new = np.linspace(-1, 1, 64, dtype=np.float32)
+    for method in ("linreg", "gpreg"):
+        model.noise_predicted = None
+        (mean, draws), pred_s, pred_launch = timed(lambda: model.predict(
+            key_pred, X_new, n=2, noise_prediction_method=method))
+        nz = model.noise_predicted.cpu().numpy()
+        extra[method] = {"predict_s": pred_s, "launches": pred_launch,
+                         "noise_rmse": float(np.sqrt(np.mean(
+                             (nz - (0.01 + 0.04 * (X_new + 1) / 2)) ** 2)))}
+        _require_finite(f"MeasuredNoiseGP {method}", mean, draws)
+        launched[f"predict {method}"] = pred_launch
+    _nuts_summary("MeasuredNoiseGP", model, fit_s, fit_launch, extra)
+    paths["MeasuredNoiseGP"] = launched
+
+    n, d, warm, draws_n, depth = IBNN_FIT
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (np.tanh(X[:, 0]) + 0.5 * np.sin(X[:, 1]) + 0.05 * rng.normal(size=n)).astype(np.float32)
+    model = gpax_torch.iBNN(d, depth=3, activation="erf")
+    _, fit_s, fit_launch = timed(lambda: model.fit(
+        key_fit, X, y, num_warmup=warm, num_samples=draws_n, max_tree_depth=depth,
+        print_summary=False, progress_bar=False))
+    (mean, draws), pred_s, pred_launch = timed(lambda: model.predict(key_pred, X[:256]))
+    _nuts_summary("iBNN", model, fit_s, fit_launch,
+                  {"n": n, "d": d, "predict_s": pred_s, "launches_predict": pred_launch,
+                   "train_rmse": float(np.sqrt(np.mean((mean.cpu().numpy() - y[:256]) ** 2)))})
+    _require_finite("iBNN", mean, draws)
+    paths["iBNN"] = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("iBNN", paths["iBNN"], ("trtri",))
+
+    n, d, steps = VIIBNN_FIT
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (np.tanh(X[:, 0]) + 0.5 * np.sin(X[:, 1]) + 0.05 * rng.normal(size=n)).astype(np.float32)
+    model = gpax_torch.vi_iBNN(d, depth=3, activation="erf")
+    _, fit_s, fit_launch = timed(lambda: model.fit(key_fit, X, y, num_steps=steps,
+                                                   print_summary=False, progress_bar=False))
+    (mean, var), pred_s, pred_launch = timed(lambda: model.predict(key_pred, X[:512]))
+    losses = model.loss.cpu()
+    print("vi_iBNN: " + json.dumps({
+        "n": n, "d": d, "num_steps": steps, "fit_s": fit_s, "ms_per_svi_step": 1e3 * fit_s / steps,
+        "loss_first": losses[0].item(), "loss_last": losses[-1].item(), "predict_s": pred_s,
+        "train_rmse": float(np.sqrt(np.mean((mean.cpu().numpy() - y[:512]) ** 2))),
+        "launches_fit": fit_launch, "launches_predict": pred_launch}), flush=True)
+    _require_finite("vi_iBNN", losses, mean, var)
+    paths["vi_iBNN"] = {"fit": fit_launch, "predict": pred_launch}
+    require_launches("vi_iBNN", paths["vi_iBNN"], ("trtri",))
+    for name in ("VarNoiseGP", "UIGP", "MeasuredNoiseGP"):
+        require_launches(name, paths[name], ("gram", "trtri"))
+    return paths
 
 
 def check_fused_posterior(composed: dict, fused: dict) -> None:
@@ -1810,7 +2144,7 @@ def main() -> None:
         auto_routes(dev)
     paths = {}
     with phase("ExactGP composed fit and predict"):
-        paths["ExactGP"], gp, chunk = main_path(dev, "never")
+        paths["ExactGP"], gp, chunk, _ = main_path(dev, "never")
         check_main_shapes(gp, chunk)
     with phase("ExactGP BO"):
         paths["ExactGP BO"] = bo_path(gp)
@@ -1820,9 +2154,21 @@ def main() -> None:
     del gp
     torch.cuda.empty_cache()
     with phase("ExactGP fused fit and predict"):
-        paths["ExactGP fused"], gp, _ = main_path(dev, "always")
+        paths["ExactGP fused"], gp, _, fused_summary = main_path(dev, "always")
         check_fused_posterior(composed, gp.get_samples())
+    fused = gp.get_samples()
     del gp, composed
+    torch.cuda.empty_cache()
+    with phase("ExactGP lockstep chains"):
+        paths["ExactGP lockstep"], gp = lockstep_path(dev, fused, fused_summary)
+        check_lockstep_shapes(gp)
+    del gp, fused
+    torch.cuda.empty_cache()
+    with phase("vExactGP lockstep chains"):
+        paths["vExactGP"] = vexact_path(dev)
+    torch.cuda.empty_cache()
+    with phase("slice-6 models"):
+        paths.update(slice6_paths())
     torch.cuda.empty_cache()
     for label, n, steps in SPARSE_PHASES:
         with phase(f"viSparseGP {label}"):

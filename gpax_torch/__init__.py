@@ -2,7 +2,10 @@
 
 It imports ``torch`` and never ``jax``. It runs the fully Bayesian
 ExactGP path (NUTS over the kernel hyperparameters, in segments if asked,
-then prediction), the multi-task ``MultiTaskGP`` and ``CoregGP``, the
+one chain or several in lockstep, then prediction), the task-batched
+``vExactGP``, ``VarNoiseGP``, ``UIGP``, ``MeasuredNoiseGP`` (with
+``LinReg``), the NNGP-kernel ``iBNN`` and ``vi_iBNN``, the multi-task
+``MultiTaskGP`` and ``CoregGP``, the
 acquisition functions of Bayesian optimization (``acquisition``), the
 SVI family: ``viGP`` and the sparse ``viSparseGP``, and the NN-coupled
 models on its own NN modules (``nn``): ``viDKL`` with its batched
@@ -22,10 +25,17 @@ from .config import get_config, set_config
 from .models import (
     BNN,
     DKL,
+    UIGP,
     CoregGP,
     ExactGP,
+    LinReg,
+    MeasuredNoiseGP,
     MultiTaskGP,
+    VarNoiseGP,
+    iBNN,
     sPM,
+    vExactGP,
+    vi_iBNN,
     viDKL,
     viGP,
     viMTDKL,
@@ -48,6 +58,13 @@ __all__ = [
     "get_config",
     "set_config",
     "ExactGP",
+    "vExactGP",
+    "VarNoiseGP",
+    "UIGP",
+    "MeasuredNoiseGP",
+    "LinReg",
+    "iBNN",
+    "vi_iBNN",
     "MultiTaskGP",
     "CoregGP",
     "viGP",

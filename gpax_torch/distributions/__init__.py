@@ -2,6 +2,7 @@ from . import constraints
 from .distributions import (
     Cauchy,
     Distribution,
+    HalfCauchy,
     HalfNormal,
     Independent,
     LogNormal,
@@ -21,6 +22,7 @@ __all__ = [
     "Normal",
     "LogNormal",
     "HalfNormal",
+    "HalfCauchy",
     "Cauchy",
     "Independent",
     "MultivariateNormal",

@@ -168,6 +168,24 @@ class HalfNormal(Distribution):
         return (self.scale**2 * (1.0 - 2.0 / math.pi)).expand(self.batch_shape)
 
 
+class HalfCauchy(Distribution):
+    support = constraints.positive
+
+    def __init__(self, scale=1.0):
+        self.scale = _as(scale)
+        self.batch_shape = tuple(self.scale.shape)
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        eps = torch.empty(shape, dtype=self.scale.dtype, device=key.device).cauchy_(
+            generator=key)
+        return torch.abs(self.scale * eps)
+
+    def log_prob(self, value):
+        z = value / self.scale
+        return math.log(2.0 / math.pi) - torch.log(self.scale) - torch.log1p(z * z)
+
+
 class Cauchy(Distribution):
     support = constraints.real
 

@@ -2,14 +2,15 @@
 leapfrog integrator, dual-averaging step-size adaptation, Welford
 (co)variance for the mass matrix, and the Stan-style warmup schedule.
 
-States are NamedTuples of tensors on the sampler's device; the schedule is
-host-side Python, since the sampler's loop is a Python loop.
+States are NamedTuples of tensors on the sampler's device, with a leading
+chain dim (C,) when chains run in lockstep; the schedule is host-side
+Python, since the sampler's loop is a Python loop.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,23 +44,25 @@ def da_update(state: DualAveragingState, accept_prob: torch.Tensor,
 
 
 class WelfordState(NamedTuple):
-    mean: torch.Tensor
-    m2: torch.Tensor             # (dim,) diagonal or (dim, dim) full second moment
-    count: torch.Tensor
+    mean: torch.Tensor           # (…, dim)
+    m2: torch.Tensor             # (…, dim) diagonal or (…, dim, dim) full second moment
+    count: torch.Tensor          # (…)
 
 
 def welford_init(dim: int, dtype=torch.float32, dense: bool = False,
-                 device=None) -> WelfordState:
-    m2_shape = (dim, dim) if dense else (dim,)
-    return WelfordState(torch.zeros((dim,), dtype=dtype, device=device),
+                 device=None, batch_shape=()) -> WelfordState:
+    """Empty sums, one set per chain of ``batch_shape``."""
+    batch_shape = tuple(batch_shape)
+    m2_shape = batch_shape + ((dim, dim) if dense else (dim,))
+    return WelfordState(torch.zeros(batch_shape + (dim,), dtype=dtype, device=device),
                         torch.zeros(m2_shape, dtype=dtype, device=device),
-                        torch.zeros((), dtype=dtype, device=device))
+                        torch.zeros(batch_shape, dtype=dtype, device=device))
 
 
 def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
     count = state.count + 1.0
     delta = x - state.mean
-    mean = state.mean + delta / count
+    mean = state.mean + delta / count[..., None]
     if state.m2.ndim == state.mean.ndim + 1:  # dense: rank-1 outer update
         m2 = state.m2 + delta[..., :, None] * (x - mean)[..., None, :]
     else:
@@ -68,79 +71,105 @@ def welford_update(state: WelfordState, x: torch.Tensor) -> WelfordState:
 
 
 def welford_variance(state: WelfordState, regularize: bool = True) -> torch.Tensor:
-    """The next window's inverse mass matrix: (dim,) diagonal or (dim, dim)."""
-    n = state.count
+    """The next window's inverse mass matrix: (…, dim) diagonal or (…, dim, dim)."""
     if state.m2.ndim == state.mean.ndim + 1:
+        n = state.count[..., None, None]
         cov = state.m2 / torch.clamp(n - 1.0, min=1.0)
         eye = torch.eye(state.mean.shape[-1], dtype=state.m2.dtype, device=state.m2.device)
         if regularize:
             # Stan's shrinkage toward (scaled) identity keeps the estimate PD
             cov = (n / (n + 5.0)) * cov + 1e-3 * (5.0 / (n + 5.0)) * eye
         return cov + 1e-10 * eye
+    n = state.count[..., None]
     var = state.m2 / torch.clamp(n - 1.0, min=1.0)
     if regularize:
         var = (n / (n + 5.0)) * var + 1e-3 * (5.0 / (n + 5.0))
     return torch.clamp(var, min=1e-10)
 
 
-def mass_velocity(inv_mass: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """v = Σ·r for a diagonal (dim,) or dense symmetric (dim, dim) Σ; ``r``
-    may carry leading batch axes."""
-    if inv_mass.ndim == 2:
-        return r @ inv_mass
-    return inv_mass * r
+def mass_velocity(inv_mass: torch.Tensor, r: torch.Tensor, dense: Optional[bool] = None
+                  ) -> torch.Tensor:
+    """v = Σ·r for a diagonal or dense symmetric Σ = ``inv_mass``.
+
+    One chain: Σ is (dim,) or (dim, dim) and ``dense`` defaults to
+    ``inv_mass.ndim == 2``; ``r`` may carry leading batch axes. A batch of
+    chains: Σ is (C, dim) or (C, dim, dim), which only ``dense`` tells
+    apart, and ``r`` is (C, …, dim), chain c's rows taking Σ[c]."""
+    if dense is None:
+        dense = inv_mass.ndim == 2
+    chains = inv_mass.ndim - (2 if dense else 1)
+    if chains == 0:
+        return r @ inv_mass if dense else inv_mass * r
+    if dense:
+        rr = r.reshape(r.shape[0], -1, r.shape[-1])
+        return (rr @ inv_mass).reshape(r.shape)
+    extra = r.ndim - inv_mass.ndim
+    return inv_mass.reshape(inv_mass.shape[:1] + (1,) * extra + inv_mass.shape[1:]) * r
 
 
 def leapfrog(potential_grad: Callable, z: torch.Tensor, r: torch.Tensor,
              step_size: torch.Tensor, inv_mass: torch.Tensor,
-             grad: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One velocity-Verlet step; returns (z_new, r_new, potential_new, grad_new)."""
+             grad: torch.Tensor, dense: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One velocity-Verlet step; returns (z_new, r_new, potential_new,
+    grad_new). For C chains z, r and grad are (C, dim) and ``step_size``
+    is (C, 1)."""
     r_half = r - 0.5 * step_size * grad
-    z_new = z + step_size * mass_velocity(inv_mass, r_half)
+    z_new = z + step_size * mass_velocity(inv_mass, r_half, dense)
     u_new, grad_new = potential_grad(z_new)
     r_new = r_half - 0.5 * step_size * grad_new
     return z_new, r_new, u_new, grad_new
 
 
-def kinetic_energy(r: torch.Tensor, inv_mass: torch.Tensor) -> torch.Tensor:
-    return 0.5 * (r * mass_velocity(inv_mass, r)).sum()
+def kinetic_energy(r: torch.Tensor, inv_mass: torch.Tensor,
+                   dense: Optional[bool] = None) -> torch.Tensor:
+    """½·rᵀΣr, one value per chain."""
+    return 0.5 * (r * mass_velocity(inv_mass, r, dense)).sum(-1)
 
 
-def sample_momentum(key: torch.Generator, inv_mass: torch.Tensor) -> torch.Tensor:
-    """r ~ N(0, M) with M = Σ⁻¹ (Σ = inv_mass)."""
-    xi = torch.randn(inv_mass.shape[-1:], generator=key, dtype=inv_mass.dtype,
-                     device=inv_mass.device)
-    if inv_mass.ndim == 2:
+def sample_momentum(key: torch.Generator, inv_mass: torch.Tensor,
+                    dense: Optional[bool] = None) -> torch.Tensor:
+    """r ~ N(0, M) with M = Σ⁻¹ (Σ = inv_mass), one draw per chain."""
+    if dense is None:
+        dense = inv_mass.ndim == 2
+    shape = inv_mass.shape[:-1] if dense else inv_mass.shape
+    xi = torch.randn(shape, generator=key, dtype=inv_mass.dtype, device=inv_mass.device)
+    if dense:
         # Σ = LLᵀ ⇒ r = L⁻ᵀξ has covariance Σ⁻¹
         L = torch.linalg.cholesky(inv_mass)
-        return torch.linalg.solve_triangular(L.mT, xi[:, None], upper=True)[:, 0]
+        return torch.linalg.solve_triangular(L.mT, xi[..., None], upper=True)[..., 0]
     return xi / torch.sqrt(inv_mass)
 
 
 def find_reasonable_step_size(potential_grad: Callable, z: torch.Tensor,
                               inv_mass: torch.Tensor, key: torch.Generator,
-                              init_step: float = 1.0) -> torch.Tensor:
-    """Heuristic initial step size (Hoffman & Gelman Alg. 4). Each doubling or
-    halving reads its accept test on the host."""
+                              init_step: float = 1.0, dense: Optional[bool] = None
+                              ) -> torch.Tensor:
+    """Heuristic initial step size (Hoffman & Gelman Alg. 4), one per chain
+    for z (C, dim), or one for z (dim,). Each chain doubles or halves under
+    its own mask until its accept test flips; one host read per round tells
+    whether any chain still moves."""
     u0, grad0 = potential_grad(z)
-    r = sample_momentum(key, inv_mass)
-    h0 = u0 + kinetic_energy(r, inv_mass)
+    r = sample_momentum(key, inv_mass, dense)
+    h0 = u0 + kinetic_energy(r, inv_mass, dense)
     log_half = math.log(0.5)
 
     def accept_logprob(eps):
-        _, r1, u1, _ = leapfrog(potential_grad, z, r, eps, inv_mass, grad0)
-        lp = h0 - (u1 + kinetic_energy(r1, inv_mass))
+        _, r1, u1, _ = leapfrog(potential_grad, z, r, eps[..., None], inv_mass, grad0, dense)
+        lp = h0 - (u1 + kinetic_energy(r1, inv_mass, dense))
         # NaN-proof: a diverging step counts as "too big"
         return torch.where(torch.isnan(lp), -math.inf, lp)
 
-    eps = torch.as_tensor(init_step, dtype=z.dtype, device=z.device)
+    eps = torch.full(z.shape[:-1], init_step, dtype=z.dtype, device=z.device)
     lp = accept_logprob(eps)
-    grow = host_bool(lp > log_half)
+    grow = lp > log_half
+    moving = torch.ones_like(grow)
     for _ in range(100):
-        if not host_bool(lp > log_half if grow else lp < log_half):
+        moving = moving & torch.where(grow, lp > log_half, lp < log_half)
+        if not host_bool(moving.any()):
             break
-        eps = eps * (2.0 if grow else 0.5)
-        lp = accept_logprob(eps)
+        eps = torch.where(moving, eps * torch.where(grow, 2.0, 0.5), eps)
+        lp = torch.where(moving, accept_logprob(eps), lp)
     return torch.clamp(eps, 1e-7, 1e3)
 
 

@@ -1,15 +1,22 @@
 """MCMC runner (counterpart of ``gpax_tpu/infer/mcmc.py``):
 ``MCMC(NUTS(model), num_warmup, num_samples).run(key, *args)`` then
-``get_samples()``. Chains run one after another on the data's device.
+``get_samples()``, on the data's device.
 
-``segment_size`` runs each chain in segments (``nuts.run_nuts_segmented``).
-The options ``segment_callback``, ``deadline`` and ``warmup_depth_cap`` act
-on a segmented single-chain run; as in the JAX package, a non-segmented
-run ignores them with a ``UserWarning``, and so does a segmented run of
-several sequential chains. One chain runs whatever the ``chain_method``,
-as in the JAX package; several chains under "vectorized" or "parallel"
-need the JAX package's lockstep runner, which is not ported, and raise
-``NotImplementedError``.
+Several chains under ``chain_method="vectorized"`` run in lockstep
+(``nuts.run_nuts_segmented_chains``, ``gpax_tpu/infer/mcmc.py:243-307``):
+one batched potential per leapfrog for all chains, so the model must carry
+a leading chain dim on its latents. "parallel" runs the same lockstep
+program on the data's one device, as the JAX package does with one device.
+"sequential" runs the chains one after another (``nuts.run_nuts_segmented``),
+and one chain runs that way whatever the ``chain_method``. Chain 0 starts
+from the median init and the others from it jittered by U(−1, 1) in the
+unconstrained space.
+
+``segment_size`` runs the chains in segments. The options
+``segment_callback``, ``deadline`` and ``warmup_depth_cap`` act on a
+segmented run of one chain or of lockstep chains; as in the JAX package, a
+non-segmented run ignores them with a ``UserWarning``, and so does a
+segmented run of several sequential chains.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from ..ppl import initialize_model, seed, substitute
 from ..ppl import trace as ppl_trace
 from ..utils.utils import spawn
 from . import diagnostics
-from .nuts import _SEGMENT_STATS, NUTS, ravel, run_nuts_segmented
+from .nuts import _SEGMENT_STATS, NUTS, ravel, run_nuts_segmented, run_nuts_segmented_chains
 
 
 def _device_of(args, kwargs) -> torch.device:
@@ -34,6 +41,28 @@ def _device_of(args, kwargs) -> torch.device:
     return torch.device("cpu")
 
 
+def _named_potential(potential_fn, model, num_chains: int):
+    """The batched potential, whose first failure names the model that
+    cannot carry the chain dim (no retry chain by chain)."""
+    checked = []
+
+    def potential(z):
+        if checked:
+            return potential_fn(z)
+        try:
+            u = potential_fn(z)
+        except (RuntimeError, ValueError) as e:
+            name = getattr(model, "__qualname__", repr(model))
+            raise ValueError(
+                f"the model {name} cannot carry a leading chain dim of {num_chains} on "
+                f"its latents, which lockstep chains need; run it with "
+                f"chain_method='sequential' ({e})") from e
+        checked.append(True)
+        return u
+
+    return potential
+
+
 class MCMC:
     def __init__(self, kernel: NUTS, num_warmup: int = 2000, num_samples: int = 2000,
                  num_chains: int = 1, chain_method: str = "sequential",
@@ -41,10 +70,6 @@ class MCMC:
                  segment_size: Optional[int] = None):
         if chain_method not in ("sequential", "vectorized", "parallel"):
             raise ValueError(f"unknown chain_method {chain_method!r}")
-        if num_chains > 1 and chain_method != "sequential":
-            raise NotImplementedError(
-                f"chain_method={chain_method!r} with {num_chains} chains: the lockstep "
-                "multi-chain runner is not ported; use 'sequential'")
         self.kernel = kernel
         self.num_warmup = num_warmup
         self.num_samples = num_samples
@@ -56,18 +81,21 @@ class MCMC:
         self.deadline = None
         self.warmup_depth_cap = None
         self.timing: Dict[str, float] = {}
-        self.num_leapfrogs = 0  # warmup + sampling, all chains, last run
+        self.num_leapfrogs = 0  # warmup + sampling, each chain's own trees, last run
+        self.num_lockstep_leapfrogs = 0  # calls of the (batched) potential, last run
         self._samples_by_chain: Optional[Dict[str, torch.Tensor]] = None
         self._stats: Optional[Dict[str, torch.Tensor]] = None
 
     def run(self, rng_key, *model_args, extra_fields=(), init_params=None, **model_kwargs):
+        single = self.num_chains == 1
+        lockstep = not single and self.chain_method != "sequential"
         ignored = [n for n in ("segment_callback", "deadline", "warmup_depth_cap")
                    if getattr(self, n) is not None]
         if ignored and not self.segment_size:
             warnings.warn(
                 f"{', '.join(ignored)} require segment_size (the segmented "
                 "runner paths); ignored on this non-segmented run", stacklevel=2)
-        elif ignored and self.num_chains > 1:
+        elif ignored and self.num_chains > 1 and not lockstep:
             warnings.warn(
                 "segment_callback/deadline/warmup_depth_cap are not threaded "
                 "through chain_method='sequential'; ignored on this run of "
@@ -84,49 +112,65 @@ class MCMC:
         self.timing = {}
         t0 = time.perf_counter()
         info = initialize_model(model, spawn(rng_key, device), model_args, model_kwargs,
-                                init_strategy=self.kernel.init_strategy)
+                                init_strategy=self.kernel.init_strategy,
+                                batch_shape=(self.num_chains,) if lockstep else ())
         base = init_params if init_params is not None else info.init_unconstrained
         sync()
         self.timing["initialize_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        single = self.num_chains == 1
-        # the window options reach the runner of a segmented single chain only
+        run = dict(num_warmup=self.num_warmup, num_samples=self.num_samples,
+                   segment_size=self.segment_size or max(self.num_warmup + self.num_samples, 1),
+                   max_tree_depth=self.kernel.max_tree_depth,
+                   target_accept_prob=self.kernel.target_accept_prob,
+                   init_step_size=self.kernel.step_size, dense_mass=self.kernel.dense_mass,
+                   progress=self.progress_bar and bool(self.segment_size))
+        # the window options reach the runner of a segmented single chain or
+        # of segmented lockstep chains only
         window = ({"segment_callback": self.segment_callback, "deadline": self.deadline,
                    "warmup_depth_cap": self.warmup_depth_cap}
-                  if single and self.segment_size else {})
-        total = self.num_warmup + self.num_samples
-        zs, stats, leapfrogs = [], [], 0
-        for c in range(self.num_chains):
+                  if (single or lockstep) and self.segment_size else {})
+        # the stats a run keeps, as in the JAX package: all on a segmented
+        # run of one or lockstep chains, none of the segment ones without
+        # segments, and all but the per-segment lists on sequential
+        # segmented chains
+        drop = (() if (single or lockstep) and self.segment_size
+                else ("segment_wall_s", "segment_leapfrogs") if self.segment_size
+                else _SEGMENT_STATS)
+        flat, unravel = ravel(base)
+        if lockstep:
             key = spawn(rng_key, device)
-            flat, unravel = ravel(base)
-            if c > 0:  # chain 0 keeps the median init; the others are jittered
-                flat = flat + 2.0 * torch.rand(flat.shape, generator=key, dtype=flat.dtype,
-                                               device=device) - 1.0
-            z, st, _ = run_nuts_segmented(
-                info.potential_fn, unravel(flat), key,
-                num_warmup=self.num_warmup, num_samples=self.num_samples,
-                segment_size=self.segment_size or max(total, 1),
-                max_tree_depth=self.kernel.max_tree_depth,
-                target_accept_prob=self.kernel.target_accept_prob,
-                init_step_size=self.kernel.step_size, dense_mass=self.kernel.dense_mass,
-                progress=self.progress_bar and bool(self.segment_size), **window)
-            leapfrogs += int(st["segment_leapfrogs"].sum())
-            # the stats a run keeps, as in the JAX package: all on a segmented
-            # single chain, none of the segment ones without segments, and
-            # all but the per-segment lists on sequential segmented chains
-            drop = (() if single and self.segment_size
-                    else ("segment_wall_s", "segment_leapfrogs") if self.segment_size
-                    else _SEGMENT_STATS)
-            zs.append(z)
-            stats.append({k: v.cpu() for k, v in st.items() if k not in drop})
-        zs = torch.stack(zs)  # (chains, draws, dim)
+            jitter = 2.0 * torch.rand((self.num_chains,) + flat.shape, generator=key,
+                                      dtype=flat.dtype, device=device) - 1.0
+            jitter[0] = 0.0  # chain 0 keeps the median init
+            zs, st, _ = run_nuts_segmented_chains(
+                _named_potential(info.potential_fn, model, self.num_chains),
+                unravel(flat + jitter), key, **run, **window)
+            self.num_leapfrogs = int(st["segment_leapfrogs"].sum())
+            self.num_lockstep_leapfrogs = int(st.pop("segment_lockstep_leapfrogs").sum())
+            # run-level stats get a leading dim of one, as one chain's do
+            stats = {k: (v[None] if k in _SEGMENT_STATS else v).cpu()
+                     for k, v in st.items() if k not in drop}
+        else:
+            zs, stats, leapfrogs = [], [], 0
+            for c in range(self.num_chains):
+                key = spawn(rng_key, device)
+                fc = flat
+                if c > 0:  # chain 0 keeps the median init; the others are jittered
+                    fc = flat + 2.0 * torch.rand(flat.shape, generator=key, dtype=flat.dtype,
+                                                 device=device) - 1.0
+                z, st, _ = run_nuts_segmented(info.potential_fn, unravel(fc), key, **run,
+                                              **window)
+                leapfrogs += int(st["segment_leapfrogs"].sum())
+                zs.append(z)
+                stats.append({k: v.cpu() for k, v in st.items() if k not in drop})
+            zs = torch.stack(zs)  # (chains, draws, dim)
+            stats = {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+            self.num_leapfrogs = self.num_lockstep_leapfrogs = leapfrogs
         sync()
         self.timing["sample_s"] = time.perf_counter() - t0
-        self.num_leapfrogs = leapfrogs
 
         t0 = time.perf_counter()
-        _, unravel = ravel(base)
         samples = info.constrain_fn(unravel(zs))
         if info.deterministic_sites:
             per_draw = []
@@ -140,7 +184,7 @@ class MCMC:
         sync()
         self.timing["postprocess_s"] = time.perf_counter() - t0
         self._samples_by_chain = samples
-        self._stats = {k: torch.stack([s[k] for s in stats]) for k in stats[0]}
+        self._stats = stats
         return self
 
     def get_samples(self, group_by_chain: bool = False) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,8 @@
 
 Same constructor, priors (LogNormal(0, 1) noise, ARD lengthscales under an
 'ard' plate, LogNormal output scale, 'period' for the periodic kernel) and
-``fit``/``predict`` lifecycle as the JAX package. Every entry point runs on
+``fit``/``predict`` lifecycle as the JAX package; ``fit`` runs one chain,
+sequential chains or chains in lockstep. Every entry point runs on
 the CUDA card unless the caller passes ``device="cpu"`` (or another device):
 ``device=None`` means the card, inputs of any kind are moved there, and
 without a card it raises. The likelihood takes one of two routes, chosen by
@@ -112,7 +113,8 @@ class ExactGP:
         kernel_params = self.kernel_prior() if self.kernel_prior else self._sample_kernel_params()
         noise = self.noise_prior() if self.noise_prior else self._sample_noise()
         if noise_mask is not None:
-            noise = noise + noise_mask
+            # per point: (n,), or (C, n) for a batch of lockstep chains
+            noise = (noise[..., None] if torch.as_tensor(noise).ndim else noise) + noise_mask
         if self.mean_fn is not None:
             args = [X]
             if self.mean_fn_prior is not None:
@@ -211,9 +213,13 @@ class ExactGP:
         ``pad_to_multiple`` pads the training set to the next multiple with
         rows far outside the data and a large masked noise, so an
         active-learning loop sees few distinct sizes; prediction uses the
-        unpadded data. ``segment_size`` runs NUTS in segments of that many
-        transitions (``infer.nuts.run_nuts_segmented``), with the same draws
-        as the unsegmented run from the same generator. On a single chain,
+        unpadded data. ``num_chains`` > 1 chains run one after another
+        under ``chain_method="sequential"``, and in lockstep under
+        "vectorized" or "parallel" (``infer.nuts.run_nuts_segmented_chains``:
+        one batched potential per leapfrog for all chains, on the data's
+        one device). ``segment_size`` runs NUTS in segments of that many
+        transitions, with the same draws as the unsegmented run from the
+        same generator. On one chain or lockstep chains,
         ``segment_callback`` gets each segment's telemetry, ``deadline`` (a
         ``time.perf_counter()`` value) truncates the draws once warmup is
         done or freezes adaptation when it passes during warmup, and
@@ -288,10 +294,11 @@ class ExactGP:
     def _predict(self, rng_key: torch.Generator, X_new: torch.Tensor,
                  params: Dict[str, torch.Tensor], n: int, noiseless: bool = False,
                  **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Mean (…, m) and n function draws (…, n, m) for posterior draw(s)."""
+        """Mean (S, …, m) and n function draws (S, n, …, m) for a chunk of
+        S posterior draws."""
         y_mean, K = self.get_mvn_posterior(X_new, params, noiseless, **kwargs)
         y_sampled = robust_mvn_sample(rng_key, y_mean, K, n)
-        return y_mean, y_sampled.movedim(0, -2)
+        return y_mean, y_sampled.movedim(0, 1)
 
     def _chunk_size(self, num_samples: int, m: int, with_test_cov: bool) -> int:
         """Posterior draws per chunk: live float32 words per draw are about

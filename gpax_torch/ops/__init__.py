@@ -1,6 +1,7 @@
 from .chol import blocked_trtri, chol_inv
 from .fused_density import gp_mvn_log_prob
 from .linalg import (
+    cho_solve,
     chol_tri_factors,
     gp_predictive_mean_var,
     gp_predictive_moments,
@@ -17,6 +18,7 @@ __all__ = [
     "chol_inv",
     "safe_chol_inv",
     "chol_tri_factors",
+    "cho_solve",
     "mvn_log_prob_centered",
     "safe_cholesky",
     "robust_mvn_sample",

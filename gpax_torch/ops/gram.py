@@ -149,12 +149,14 @@ def gram(X: torch.Tensor, Z: torch.Tensor, k_length, k_scale, noise=0.0,
     have the same shape (the reference diagonal rule); ``jitter`` defaults to
     the config's ``default_jitter``. Hyperparameters may
     carry leading batch dims (the shape of ``k_scale``; ``k_length`` is that
-    plus ``(d,)``, ``noise`` that plus nothing or ``(n,)``), so a chunk of
-    posterior draws is one K1 launch. X (…, n, d) and Z (…, m, d).
+    plus ``(d,)`` or nothing, ``noise`` that plus nothing or ``(n,)``), so a
+    chunk of posterior draws is one K1 launch. X (…, n, d) and Z (…, m, d).
     """
     symmetric = X is Z
     ls = torch.as_tensor(k_length, dtype=X.dtype, device=X.device)
     ks = torch.as_tensor(k_scale, dtype=X.dtype, device=X.device)
+    if ls.ndim and ls.shape == ks.shape:
+        ls = ls.unsqueeze(-1)  # one lengthscale per matrix of the batch, not ARD
     if ls.ndim:
         ls = ls.unsqueeze(-2)
     Xs = X / ls

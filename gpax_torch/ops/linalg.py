@@ -216,6 +216,17 @@ def robust_mvn_sample(rng_key: torch.Generator, mean: torch.Tensor,
     return mean + (L @ eps.unsqueeze(-1)).squeeze(-1)
 
 
+def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve K x = B given K = L Lᵀ (``linalg.py:317-320``), batched over
+    L's leading dims. B is a vector per matrix (one dim fewer than L) or a
+    matrix of right-hand sides."""
+    vec = B.ndim == L.ndim - 1
+    Bm = B.unsqueeze(-1) if vec else B
+    x = torch.linalg.solve_triangular(L.mT, torch.linalg.solve_triangular(L, Bm, upper=False),
+                                      upper=True)
+    return x.squeeze(-1) if vec else x
+
+
 def gp_predictive_moments(k_XX, k_pX, k_pp, y) -> Tuple[torch.Tensor, torch.Tensor]:
     """GP posterior mean = k_pX K⁻¹ y and cov = k_pp − k_pX K⁻¹ k_pXᵀ via
     W = L⁻¹ (``linalg.py:328-350``); batched over leading dims."""

@@ -60,14 +60,18 @@ def transform_log_det(transforms: Dict, unconstrained: Dict, constrained: Dict,
     return out
 
 
-def make_potential_fn(model, transforms: Dict, model_args=(), model_kwargs=None):
-    """U(z) = −[log p(constrain(z), data) + log|det J|]; differentiable by autograd."""
+def make_potential_fn(model, transforms: Dict, model_args=(), model_kwargs=None,
+                      batch_shape=()):
+    """U(z) = −[log p(constrain(z), data) + log|det J|]; differentiable by
+    autograd. With a ``batch_shape`` (C,), the latents lead with the chain
+    dim and U is (C,), each chain's own; a site whose log-probability does
+    not lead with it raises a ``ValueError`` that names the site."""
     model_kwargs = model_kwargs or {}
 
     def potential_fn(unconstrained: Dict[str, torch.Tensor]) -> torch.Tensor:
         params = constrain(transforms, unconstrained)
-        ld, _ = log_density(model, model_args, model_kwargs, params)
-        return -(ld + transform_log_det(transforms, unconstrained, params))
+        ld, _ = log_density(model, model_args, model_kwargs, params, batch_shape)
+        return -(ld + transform_log_det(transforms, unconstrained, params, batch_shape))
 
     return potential_fn
 
@@ -90,8 +94,11 @@ def init_to_median(model, rng_key, model_args=(), model_kwargs=None, num_samples
 
 
 def initialize_model(model, rng_key, model_args=(), model_kwargs=None,
-                     init_strategy: str = "median", num_init_samples: int = 10) -> ModelInfo:
-    """Model structure, transforms, potential and initial latent values."""
+                     init_strategy: str = "median", num_init_samples: int = 10,
+                     batch_shape=()) -> ModelInfo:
+    """Model structure, transforms, potential and initial latent values. The
+    initial values are one chain's; with a ``batch_shape`` (C,) the
+    potential is batched over C chains (see :func:`make_potential_fn`)."""
     model_kwargs = model_kwargs or {}
     if init_strategy not in ("median", "prior"):
         raise ValueError(f"unknown init strategy {init_strategy}")
@@ -104,7 +111,8 @@ def initialize_model(model, rng_key, model_args=(), model_kwargs=None,
                                           num_init_samples, latent_sites)
     else:
         init_constrained = {n: s["value"] for n, s in latent_sites.items()}
-    potential_fn = make_potential_fn(model, transforms, model_args, model_kwargs)
+    potential_fn = make_potential_fn(model, transforms, model_args, model_kwargs,
+                                     batch_shape)
 
     def constrain_fn(z):
         return constrain(transforms, z)

@@ -16,12 +16,21 @@ from .utils import resolve_device, tree_map
 
 
 def samples_from_numpy(samples: Dict[str, np.ndarray], device=None,
-                       dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+                       dtype: torch.dtype = torch.float32,
+                       chain_dim: bool = False) -> Dict[str, torch.Tensor]:
     """Posterior samples as numpy arrays (e.g. ``{"k_length": (S, d),
-    "k_scale": (S,), "noise": (S,)}`` from ``gpax_tpu.ExactGP.get_samples()``)
-    as the port's dict of tensors on ``device``."""
-    return {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
-            for k, v in samples.items()}
+    "k_scale": (S,), "noise": (S,)}`` from ``gpax_tpu.ExactGP.get_samples()``,
+    or any model's sites: VarNoiseGP's ``k_noise_*`` and ``log_var`` (S, n),
+    UIGP's ``X_prime`` (S, n, d) and ``sigma_x``, vExactGP's per-task
+    (S, T, …)) as the port's dict of tensors on ``device``. With
+    ``chain_dim``, the arrays are grouped by chain, (C, S, …) as
+    ``get_samples(chain_dim=True)`` gives them, and are flattened to
+    (C·S, …), the draws that ``predict`` takes."""
+    out = {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+           for k, v in samples.items()}
+    if chain_dim:
+        out = {k: v.reshape((-1,) + v.shape[2:]) for k, v in out.items()}
+    return out
 
 
 def vi_state_from_jax(model) -> Dict[str, object]:

@@ -543,3 +543,50 @@ def test_vidkl_ensemble_step_launches_k1_once_for_all_models(dev):
         seen.append((gram.launches - k1, chol.launches - k2, host_syncs()))
         assert model.loss.shape == (3, steps) and bool(torch.isfinite(model.loss).all())
     assert [b - a for a, b in zip(*seen)] == [5, 5, 5]
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+def test_batched_fused_density_on_card_matches_cpu(dev, kind):
+    """The fused op over a leading batch of 4 chains' hyperparameters
+    launches K1 once and K2 once for the batch on the card and agrees with
+    its CPU twins chain by chain, within the tolerances of the unbatched
+    case (value 1e-4, θ-gradients 5e-3 of their max)."""
+    rng = np.random.default_rng(4)
+    X = torch.tensor(rng.uniform(-2, 2, (400, 2)), dtype=torch.float32)
+    y = torch.tensor(np.sin(2 * X[:, 0].numpy()) + 0.1 * rng.normal(size=400),
+                     dtype=torch.float32)
+    vals = (rng.uniform(0.6, 1.2, (4, 2)), rng.uniform(1.0, 2.0, 4), rng.uniform(0.1, 0.3, 4))
+    out = []
+    for device in ("cpu", dev):
+        p = [torch.tensor(v, dtype=torch.float32, device=device, requires_grad=True)
+             for v in vals]
+        k1, k2 = gram.launches, chol.launches
+        lp = fused_density.gp_mvn_log_prob(X.to(device), *p, y.to(device), kind)
+        grads = torch.autograd.grad(lp.sum(), p)
+        if device != "cpu":
+            assert (gram.launches, chol.launches) == (k1 + 1, k2 + 1)
+        assert lp.shape == (4,)
+        out.append((lp.detach().cpu(), [g.cpu() for g in grads]))
+    (u0, g0), (u1, g1) = out
+    assert (u1 - u0).abs().max() <= 1e-4 * u0.abs().max()
+    for a, b in zip(g1, g0):
+        assert (a - b).abs().max() <= 5e-3 * b.abs().max()
+
+
+def test_lockstep_chains_launch_k1_and_k2_once_a_lockstep_leapfrog(dev):
+    """Two vectorized chains of ExactGP on the card: K1 and K2 launch once
+    per batched potential, so their counts follow the lockstep leapfrogs
+    (plus the few evaluations outside the tree), not the chains'."""
+    rng = np.random.default_rng(0)
+    X = torch.tensor(rng.uniform(-2, 2, (256, 1)), dtype=torch.float32, device=dev)
+    y = torch.sin(2 * X[:, 0]) + 0.1 * torch.tensor(rng.normal(size=256), dtype=torch.float32,
+                                                    device=dev)
+    gp = gpax_torch.ExactGP(1, "RBF")
+    k1, k2 = gram.launches, chol.launches
+    gp.fit(0, X, y, num_warmup=30, num_samples=30, num_chains=2, chain_method="vectorized",
+           print_summary=False)
+    lock = gp.mcmc.num_lockstep_leapfrogs
+    for launched in (gram.launches - k1, chol.launches - k2):
+        assert lock <= launched <= lock + 30
+    assert gp.mcmc.num_leapfrogs > lock
+    assert gp.get_samples(chain_dim=True)["noise"].shape == (2, 30)

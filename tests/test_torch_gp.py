@@ -189,12 +189,17 @@ def test_fit_input_shapes_padding_and_prior_draws():
 
 
 def test_unported_pieces_raise():
-    with pytest.raises(NotImplementedError):
-        gpax_torch.ExactGP(1, "NNGP")
+    """The NNGP kernel and lockstep chains, once refused, now run (the name
+    is kept from when they raised)."""
     X, y = _data()
-    with pytest.raises(NotImplementedError):
-        gpax_torch.ExactGP(1, "RBF").fit(0, X, y, num_warmup=5, num_samples=5, num_chains=2,
-                                         chain_method="vectorized", device="cpu")
+    gp = gpax_torch.ExactGP(1, "NNGP")
+    params = {"var_b": torch.tensor(0.5), "var_w": torch.tensor(1.5)}
+    k = gp.kernel(torch.as_tensor(X)[:, None], torch.as_tensor(X)[:, None], params, 0.1)
+    assert k.shape == (8, 8) and bool(torch.isfinite(k).all())
+    m = gpax_torch.ExactGP(1, "RBF")
+    m.fit(0, X, y, num_warmup=5, num_samples=5, num_chains=2, chain_method="vectorized",
+          print_summary=False, device="cpu")
+    assert m.get_samples(chain_dim=True)["noise"].shape == (2, 5)
 
 
 def test_samples_from_numpy():

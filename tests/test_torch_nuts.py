@@ -180,11 +180,17 @@ def test_positive_latent_transform():
     {"num_chains": 2, "chain_method": "vectorized"},
     {"num_chains": 2, "chain_method": "parallel"}])
 def test_unported_options_raise(kwargs):
-    """Several lockstep chains need the JAX package's batched runner, which
-    is not ported; one chain runs under any chain_method
-    (tests/test_torch_nuts_segmented.py)."""
-    with pytest.raises(NotImplementedError):
-        MCMC(NUTS(lambda: None), **kwargs)
+    """Several chains under "vectorized" or "parallel", segmented or not,
+    once refused, now run in lockstep and return (2, S) draws (the name is
+    kept from when they raised)."""
+    def model():
+        tppl.sample("a", tdist.Normal(0.0, 1.0))
+
+    mcmc = MCMC(NUTS(model), 20, 30, **kwargs)
+    mcmc.run(0)
+    a = mcmc.get_samples(group_by_chain=True)["a"]
+    assert a.shape == (2, 30) and bool(torch.isfinite(a).all())
+    assert mcmc.num_leapfrogs >= mcmc.num_lockstep_leapfrogs >= 50
 
 
 @pytest.mark.parametrize("attr", ["segment_callback", "deadline", "warmup_depth_cap"])
