@@ -60,8 +60,8 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     "always"``), with the main path's limits, its posterior means within 4
     posterior sd of the composed fit's, and K1/K2 launches counted; then
     the same data with 2 chains in lockstep (``num_chains=2,
-    chain_method="vectorized"``, segments of 50, 100 + 100 draws, depth
-    7, the route "auto" takes: fused), printing lockstep and chain leapfrogs,
+    chain_method="vectorized"``, segments of 50, 100 + 50 draws, depth
+    5, the route "auto" takes: fused), printing lockstep and chain leapfrogs,
     ms a lockstep leapfrog beside the single-chain fused fit's ms a
     leapfrog, chain draws/s, host syncs a lockstep leapfrog, K1/K2
     launches and each site's R-hat, and checking one K1 and one K2 launch
@@ -70,10 +70,10 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     means within 4 sd of the fused fit's and the pooled predict's RMSE,
     with K1 and K2 held against their twins on the (2, 4096, 4096) gram
     and float64 factors of the chains' last draws; then vExactGP (4 tasks
-    × 1024 points, 2 lockstep chains, 100 + 100, depth 7), its launches
+    × 1024 points, 2 lockstep chains, 100 + 50, depth 5), its launches
     counted and K1/K2 held against their twins on its (2·4, 1024, 1024)
-    grams and factors; then VarNoiseGP and UIGP (n = 128, 50 + 50, depth
-    6), MeasuredNoiseGP (n = 256, 100 + 100, noise predicted by LinReg and
+    grams and factors; then VarNoiseGP (n = 128, 50 + 50, depth 5) and
+    UIGP (n = 128, 50 + 50, depth 6), MeasuredNoiseGP (n = 256, 100 + 100, noise predicted by LinReg and
     by viGP), iBNN (n = 512, d = 8, 100 + 100, depth 7) and vi_iBNN (n =
     2048, d = 8, 500 steps), each fitted and predicted with its seconds,
     leapfrogs or steps, divergences, K1/K2 launches and finite outputs;
@@ -142,7 +142,33 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     with K1 and K2 launched;
 20. fits a BNN on 300 points (20 + 20 draws at the JAX package's tree
     depth of 10) and predicts them;
-21. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
+21. drives the structured ExactGP (examples/structured_gp.py at config 1's
+    size): n = 4096 points of 1.2·sin(5x)·exp(−0.8x) + N(0, 0.05²) on
+    [0, 1.2], Matérn, the mean A·sin(w·x)·exp(−d·x) written for one draw
+    with A, d ~ LogNormal(0, 0.5) and w ~ Uniform(3, 7) (the sigmoid
+    transform), ``priors.gamma_dist(2, 5)`` lengthscales and
+    ``priors.halfnormal_dist(0.1)`` noise; one chain on the fused route
+    (100 + 100, depth 7), then 2 lockstep chains ("vectorized", segments
+    of 50) whose batched potential must be trusted, then predict on 2048
+    points of [0, 2.4]: every w draw in (3, 7), divergences, accept,
+    R-hat, each chain's means within 4 sd of the single chain's, one K1
+    and one K2 launch a lockstep leapfrog, the posterior mean's RMSE on
+    [0, 1.2] (and, printed, on the extrapolation), with K1 and K2 held
+    against their twins on the lockstep fit's (2, 4096, 4096) Matérn gram
+    and float64 factors;
+22. saves the single-chain structured fit and the viGP config-2 model with
+    ``utils.save_model`` and loads each onto a fresh model on the card
+    (``load_model``'s default) and on the CPU: the card's predict equals
+    the original's bit for bit, the CPU's equals the original's CPU predict
+    on the same draws, and the card's is held to the CPU's as BO's is;
+23. runs examples/hypothesis_learning.py's workflow: linear and quadratic
+    hypotheses of 1.5x² − 0.5 on a 512-point grid, 8 points measured to
+    start, 4 rounds of ``hypo.step`` on the bandit's pick (eps-greedy;
+    200 + 200 draws; sPM, then the hypothesis as an ExactGP's mean, in
+    turns), checking each reward vector's shape and sign, K1/K2 launches
+    on the GP-wrapped rounds, that both hypotheses were fitted and that the
+    quadratic's mean reward beats the linear's;
+24. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -155,6 +181,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -165,13 +192,18 @@ import torch
 
 import gpax_torch
 from gpax_torch import acquisition as acq
+from gpax_torch import distributions as tdist
+from gpax_torch import hypo, priors
+from gpax_torch import ppl as tppl
+from gpax_torch.hypo import sample_next, update_record
 from gpax_torch.ops import build, chol, gram, linalg, panel_chol
 from gpax_torch.ppl import initialize_model, log_density
 from gpax_torch.probes.configs import (MT_DEPTH, MT_DEPTH_CAP, MT_SAMPLES, MT_SEGMENT,
                                        MT_TARGET, MT_WARMUP, VIDKL_D, VIDKL_MEASURED,
                                        VIDKL_MODELS, VIDKL_POOL, VIDKL_STEPS, config4_data,
                                        config5_data, f_hi)
-from gpax_torch.utils import get_keys, host_syncs, preprocess_sparse_image, reset_host_syncs
+from gpax_torch.utils import (get_keys, host_syncs, load_model, preprocess_sparse_image,
+                              reset_host_syncs, save_model)
 
 N_MAIN = 4096        # training points of the main path (bench.py's n)
 NUM_WARMUP = 100
@@ -226,7 +258,8 @@ VIGP_RMSE_MAX = 0.01              # the JAX package on the CPU: 0.00136
 
 # Bayesian optimization on the n = 4096 fit: q-function subsets, the
 # optimizer's multi-start and steps, and the card-vs-CPU check's size
-BO_SUBSAMPLE, BO_STARTS, BO_STEPS = 4, 64, 10
+# (optimize_acq's steps cut from 10 to 4 in PR 11 for the run's limit)
+BO_SUBSAMPLE, BO_STARTS, BO_STEPS = 4, 64, 4
 BO_CHECK_DRAWS, BO_CHECK_POINTS = 4, 256
 # the card's EI and UCB against the same port call on the CPU: both sides
 # solve with float32 grams that agree to ~1e-7 relative (K1 and its twin)
@@ -283,17 +316,36 @@ BNN_N, BNN_HIDDEN, BNN_WARMUP, BNN_SAMPLES = 300, [8, 4], 20, 20
 # lockstep leapfrog; at 50 + 50 they took 199 s (50 warmup steps hold no
 # mass window, so trees ran 3x longer) and k_scale's R-hat reached 1.100
 LOCK_CHAINS, LOCK_SEGMENT = 2, 50
-LOCK_WARMUP, LOCK_SAMPLES = NUM_WARMUP, NUM_SAMPLES
+# PR 11 cut the draws from 100 + 100 to 100 + 50 and the depth from 7 to 5
+# for the run's limit (call 1, PR 11: 1164.89 s with the new phases);
+# the structured phase runs the same lockstep route at 100 + 100, depth 7
+LOCK_WARMUP, LOCK_SAMPLES, LOCK_DEPTH = NUM_WARMUP, 50, 5
 LOCK_RHAT_MAX = 1.1
 # launches of K1 and K2 outside the tree's lockstep leapfrogs: the model's
 # trace in initialize_model, the potential at the start and the doublings
 # of the step-size search (at most ~10 a run here)
 LOCK_EXTRA_LAUNCHES = 30
 LOCK_SYNCS_MAX = 2.5  # host syncs per lockstep leapfrog
+# the structured ExactGP (examples/structured_gp.py at config 1's size):
+# SGP_N points of 1.2·sin(5x)·exp(−0.8x) + N(0, SGP_NOISE²) on [0, 1.2],
+# predicted on [0, 2.4]; the main path's draws, depth and lockstep chains
+SGP_N, SGP_NOISE, SGP_TRAIN_HI, SGP_PREDICT_HI = N_MAIN, 0.05, 1.2, 2.4
+SGP_RMSE_MAX = 0.03  # the posterior mean against the truth on [0, 1.2]
+# checkpoints: predict on CKPT_POINTS points, CKPT_CPU_DRAWS draws on the
+# CPU; the CPU restore against the original's CPU predict, and the card's
+# predictive mean against the CPU's relative to its largest value, as
+# BO's card-vs-CPU check (cond(K) amplifies K1's and its twin's rounding)
+CKPT_POINTS, CKPT_CPU_DRAWS = 256, 4
+CKPT_RTOL, CKPT_CARD_CPU_TOL = 1e-5, BO_CHECK_TOL
+# hypothesis learning (examples/hypothesis_learning.py): the grid, the
+# points measured to start, the rounds and each fit's draws
+HYPO_GRID, HYPO_START, HYPO_ROUNDS = 512, 8, 4
+HYPO_WARMUP, HYPO_SAMPLES = 200, 200
 # vExactGP: 4 tasks of 1024 points, 2 lockstep chains
-VGP_TASKS, VGP_N, VGP_CHAINS = 4, 1024, 2
+# (draws cut from 100 + 100 to 100 + 50, depth from 7 to 5, in PR 11)
+VGP_TASKS, VGP_N, VGP_CHAINS, VGP_SAMPLES, VGP_DEPTH = 4, 1024, 2, 50, 5
 # the slice-6 models: (n, warmup, samples, depth) of each NUTS fit
-VARNOISE_FIT = (128, 50, 50, 6)
+VARNOISE_FIT = (128, 50, 50, 5)   # depth cut from 6 to 5 in PR 11
 UIGP_FIT = (128, 50, 50, 6)
 MNGP_FIT = (256, 100, 100)        # MeasuredNoiseGP.fit has no depth option: 10
 IBNN_FIT = (512, 8, 100, 100, 7)  # n, d, warmup, samples, depth
@@ -1163,7 +1215,7 @@ def lockstep_path(dev, fused: dict, fused_summary: dict):
     t0 = time.perf_counter()
     gp.fit(k_fit, X, y, num_warmup=LOCK_WARMUP, num_samples=LOCK_SAMPLES,
            num_chains=LOCK_CHAINS, chain_method="vectorized", segment_size=LOCK_SEGMENT,
-           max_tree_depth=MAX_DEPTH, print_summary=False, progress_bar=False)
+           max_tree_depth=LOCK_DEPTH, print_summary=False, progress_bar=False)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     syncs = host_syncs()
@@ -1185,7 +1237,7 @@ def lockstep_path(dev, fused: dict, fused_summary: dict):
     rmse = float(np.sqrt(np.mean((mean.numpy() - np.sin(2 * X_new[:, 0].cpu().numpy())) ** 2)))
     summary = {
         "n": N_MAIN, "chains": LOCK_CHAINS, "segment_size": LOCK_SEGMENT,
-        "num_warmup": LOCK_WARMUP, "num_samples": LOCK_SAMPLES, "max_tree_depth": MAX_DEPTH,
+        "num_warmup": LOCK_WARMUP, "num_samples": LOCK_SAMPLES, "max_tree_depth": LOCK_DEPTH,
         "route": "fused" if gp._fused_likelihood_ok(X, {"k_length": None, "k_scale": None})
         else "composed",
         "fit_s": fit_s, "lockstep_leapfrogs": lockstep, "chain_leapfrogs": chain_leapfrogs,
@@ -1232,7 +1284,7 @@ def lockstep_path(dev, fused: dict, fused_summary: dict):
     return launched, gp
 
 
-def check_lockstep_shapes(gp) -> None:
+def check_lockstep_shapes(gp, kind: str = "rbf", label: str = "lockstep fit") -> None:
     """K1 and K2 against their twins on the lockstep fit's own inputs: the
     (C, n, n) gram of the chains' last draws, as the fused op builds it
     (noise_eff with the jitter and base regularization, over k_scale), and
@@ -1244,13 +1296,13 @@ def check_lockstep_shapes(gp) -> None:
     noise_eff = last["noise"] + jitter + 4.0 * n * torch.finfo(torch.float32).eps
     Xs = (X / last["k_length"][:, None, :]).contiguous()
     nz = noise_eff[:, None].expand(LOCK_CHAINS, n).contiguous()
-    k1_compare(f"lockstep fit gram B={LOCK_CHAINS} {n}x{n}", Xs, Xs,
-               (nz / last["k_scale"][:, None]).contiguous(), True)
-    K = last["k_scale"][:, None, None] * gram.gram_unscaled(Xs, Xs, nz, "rbf", False)
+    k1_compare(f"{label} gram {kind} B={LOCK_CHAINS} {n}x{n}", Xs, Xs,
+               (nz / last["k_scale"][:, None]).contiguous(), True, kind)
+    K = last["k_scale"][:, None, None] * gram.gram_unscaled(Xs, Xs, nz, kind, False)
     K.diagonal(dim1=-2, dim2=-1).add_(nz)
     L, W, _ = linalg._chol_tri_factors_ld(K, None)
     del K
-    k2_compare(f"float64 factors of the lockstep fit's grams B={LOCK_CHAINS} n={n}", L, W,
+    k2_compare(f"float64 factors of the {label}'s grams B={LOCK_CHAINS} n={n}", L, W,
                1e-7, 1e-6)
     del L, W
     torch.cuda.empty_cache()
@@ -1267,7 +1319,8 @@ def vexact_data():
 
 def vexact_path(dev) -> dict:
     """vExactGP on VGP_TASKS × VGP_N points with VGP_CHAINS lockstep chains
-    (the main path's draws and depth), then predict on the training inputs;
+    (VGP_SAMPLES draws after the main path's warmup, depth VGP_DEPTH), then
+    predict on 256 points a task;
     K1 and K2 against their twins on the (chains·tasks, n, n) grams and
     float64 factors of the chains' last draws."""
     X, f, y = vexact_data()
@@ -1275,8 +1328,8 @@ def vexact_path(dev) -> dict:
     model = gpax_torch.vExactGP(1, "RBF")
     reset_host_syncs()
     _, fit_s, fit_launch = timed(lambda: model.fit(
-        k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES, num_chains=VGP_CHAINS,
-        chain_method="vectorized", max_tree_depth=MAX_DEPTH, print_summary=False,
+        k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=VGP_SAMPLES, num_chains=VGP_CHAINS,
+        chain_method="vectorized", max_tree_depth=VGP_DEPTH, print_summary=False,
         progress_bar=False))
     syncs = host_syncs()
     mcmc = model.mcmc
@@ -1299,7 +1352,7 @@ def vexact_path(dev) -> dict:
                         for k, v in by_chain.items()},
                "launches": {"fit": fit_launch, "predict": pred_launch}}
     print(f"vExactGP lockstep chains: {json.dumps(summary)}", flush=True)
-    if mean.shape != (VGP_TASKS, 256) or draws.shape != (VGP_CHAINS * NUM_SAMPLES, 1,
+    if mean.shape != (VGP_TASKS, 256) or draws.shape != (VGP_CHAINS * VGP_SAMPLES, 1,
                                                          VGP_TASKS, 256) \
             or not (bool(torch.isfinite(mean).all()) and bool(torch.isfinite(draws).all())):
         fail(f"vExactGP: predictions of shape {tuple(mean.shape)}, {tuple(draws.shape)} "
@@ -2119,6 +2172,277 @@ def bnn_path() -> None:
         fail(f"BNN: predictions of shape {tuple(y_pred.shape)} or non-finite")
 
 
+def osc(x, p):
+    """The structured mean A·sin(w·x)·exp(−d·x), written for one draw of its
+    parameters (examples/structured_gp.py:23-26)."""
+    return (p["A"] * torch.sin(p["w"] * x) * torch.exp(-p["d"] * x)).squeeze()
+
+
+def osc_prior():
+    return {"A": tppl.sample("A", tdist.LogNormal(0.0, 0.5)),
+            "w": tppl.sample("w", tdist.Uniform(3.0, 7.0)),
+            "d": tppl.sample("d", tdist.LogNormal(0.0, 0.5))}
+
+
+def structured_gp():
+    return gpax_torch.ExactGP(1, "Matern", mean_fn=osc, mean_fn_prior=osc_prior,
+                              lengthscale_prior_dist=priors.gamma_dist(2.0, 5.0),
+                              noise_prior_dist=priors.halfnormal_dist(0.1))
+
+
+def sgp_truth(x: np.ndarray) -> np.ndarray:
+    return 1.2 * np.sin(5.0 * x) * np.exp(-0.8 * x)
+
+
+def _sgp_fit(gp, X, y, chains: int) -> dict:
+    """Fit the structured GP (one chain, or LOCK_CHAINS in lockstep) and
+    return its numbers, its K1/K2 launches and its checks' inputs."""
+    k_fit, _ = get_keys(0)
+    lockstep = dict(num_chains=chains, chain_method="vectorized", segment_size=LOCK_SEGMENT) \
+        if chains > 1 else {}
+    reset_counts()
+    reset_host_syncs()
+    t0 = time.perf_counter()
+    gp.fit(k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES, max_tree_depth=MAX_DEPTH,
+           print_summary=False, progress_bar=False, **lockstep)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    syncs = host_syncs()
+    mcmc = gp.mcmc
+    stats = mcmc.get_extra_fields(group_by_chain=True)
+    by_chain = gp.get_samples(chain_dim=True)
+    steps = mcmc.num_lockstep_leapfrogs
+    return {
+        "chains": chains, "fit_s": fit_s, "leapfrogs": mcmc.num_leapfrogs,
+        "lockstep_leapfrogs": steps, "ms_per_leapfrog": 1e3 * fit_s / max(steps, 1),
+        "chain_draws_per_s": chains * NUM_SAMPLES / fit_s,
+        "accept_mean": stats["accept_prob"].mean().item(),
+        "divergences": int(stats["diverging"].sum()),
+        "host_syncs_per_leapfrog": syncs / max(steps, 1),
+        "chain_by_chain": mcmc.chain_by_chain,
+        "w_range": [by_chain["w"].min().item(), by_chain["w"].max().item()],
+        "chain_means": {k: v.float().reshape(chains, NUM_SAMPLES, -1).mean(1).tolist()
+                        for k, v in by_chain.items()},
+        "launches_fit": counts(),
+    }
+
+
+def structured_path(dev):
+    """The structured ExactGP at config 1's size: SGP_N points of the damped
+    oscillator on [0, 1.2], its mean written for one draw with w ~
+    Uniform(3, 7) through the sigmoid; one chain on the fused route, then
+    LOCK_CHAINS lockstep chains ("vectorized", the route "auto" takes),
+    then predict over PREDICT_M points of [0, 2.4] from the single chain."""
+    rng = np.random.default_rng(0)
+    X_np = np.sort(rng.uniform(0.0, SGP_TRAIN_HI, SGP_N)).astype(np.float32)
+    y_np = (sgp_truth(X_np) + SGP_NOISE * rng.normal(size=SGP_N)).astype(np.float32)
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    gp = structured_gp()
+    with route("always"):
+        one = _sgp_fit(gp, X, y, 1)
+    lock = structured_gp()
+    many = _sgp_fit(lock, X, y, LOCK_CHAINS)
+    by_chain = lock.get_samples(chain_dim=True)
+    many["rhat"] = {k: float(np.max(gpax_torch.infer.gelman_rubin(v.float())))
+                    for k, v in by_chain.items()}
+    X_new = torch.linspace(0.0, SGP_PREDICT_HI, PREDICT_M, device=dev)[:, None]
+    _, k_pred = get_keys(0)
+    reset_counts()
+    t0 = time.perf_counter()
+    mean, draws = gp.predict_in_batches(k_pred, X_new, batch_size=PREDICT_BATCH, noiseless=True)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t0
+    pred_launch = counts()
+    x = X_new[:, 0].cpu().numpy()
+    err = mean.numpy() - sgp_truth(x)
+    train = x <= SGP_TRAIN_HI
+    rmse = float(np.sqrt(np.mean(err[train] ** 2)))
+    rmse_extra = float(np.sqrt(np.mean(err[~train] ** 2)))
+    summary = {"n": SGP_N, "num_warmup": NUM_WARMUP, "num_samples": NUM_SAMPLES,
+               "max_tree_depth": MAX_DEPTH, "segment_size": LOCK_SEGMENT,
+               "one_chain_fused": {k: v for k, v in one.items() if k != "launches_fit"},
+               "lockstep": {k: v for k, v in many.items() if k != "launches_fit"},
+               "predict_m": PREDICT_M, "predict_s": pred_s, "rmse_train_range": rmse,
+               "rmse_extrapolation": rmse_extra, "launches_fit": one["launches_fit"],
+               "launches_lockstep_fit": many["launches_fit"], "launches_predict": pred_launch}
+    print("structured ExactGP: " + json.dumps(summary), flush=True)
+    for run, fit in (("one chain", one), ("lockstep", many)):
+        w = fit["w_range"]
+        if not (3.0 < w[0] and w[1] < 7.0):
+            fail(f"structured {run}: w draws {w} leave (3, 7)")
+        if fit["divergences"] > 0.05 * fit["chains"] * NUM_SAMPLES:
+            fail(f"structured {run}: {fit['divergences']} divergences")
+        if not 0.5 <= fit["accept_mean"] <= 0.99:
+            fail(f"structured {run}: mean accept {fit['accept_mean']}")
+    if many["chain_by_chain"]:
+        fail("structured lockstep: the batched potential was not trusted")
+    if not max(many["rhat"].values()) < LOCK_RHAT_MAX:
+        fail(f"structured lockstep: R-hat {many['rhat']}")
+    single = gp.get_samples()
+    for site, v in single.items():
+        ref, sd = v.float().mean(0), v.float().std(0) + 1e-6
+        for c in range(LOCK_CHAINS):
+            m = by_chain[site][c].float().mean(0)
+            if not bool((abs(m - ref) < FUSED_SD * sd).all()):
+                fail(f"structured lockstep chain {c}: posterior mean of {site} {m.tolist()} "
+                     f"is off the single chain's {ref.tolist()} (sd {sd.tolist()})")
+    steps = many["lockstep_leapfrogs"]
+    for k in ("gram", "trtri"):
+        if not steps <= many["launches_fit"][k] <= steps + LOCK_EXTRA_LAUNCHES:
+            fail(f"structured lockstep fit: {many['launches_fit'][k]} {k} launches for "
+                 f"{steps} lockstep leapfrogs (one each, plus at most {LOCK_EXTRA_LAUNCHES})")
+    if not (mean.shape == (PREDICT_M,) and draws.shape == (NUM_SAMPLES, 1, PREDICT_M)
+            and bool(torch.isfinite(mean).all()) and bool(torch.isfinite(draws).all())):
+        fail(f"structured predict: shapes {tuple(mean.shape)}, {tuple(draws.shape)} "
+             "or non-finite")
+    if not rmse <= SGP_RMSE_MAX:
+        fail(f"structured predict: RMSE {rmse} on the training range > {SGP_RMSE_MAX}")
+    launched = {"fit": one["launches_fit"], "lockstep fit": many["launches_fit"],
+                "predict": pred_launch}
+    require_launches("structured ExactGP", launched, ("gram", "trtri"))
+    return launched, gp, lock
+
+
+def _restore_check(label: str, model, build_model, predict, compare, dev) -> dict:
+    """save_model ``model`` (under the git-ignored build/), load it onto
+    ``build_model()`` on the card and on the CPU. The card's ``predict(m)``
+    equals the original's bit for bit; the CPU's ``compare(m, "cpu")``
+    equals the original's on the CPU (the same port call) to CKPT_RTOL, and
+    the card's mean to CKPT_CARD_CPU_TOL of its largest value. (A variance
+    is a difference of terms of the prior's size that cancel near the data,
+    so the grams' float32 rounding leaves it agreeing only to ~1e-2 of its
+    own size: 9.0e-3 for viGP config 2 in call 1, PR 11; it is printed.)"""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_checkpoints", label.replace(" ", "_"))
+    reset_counts()
+    save_model(path, model)
+    torch.cuda.empty_cache()
+    ref = predict(model)
+    card = load_model(path, build_model())
+    torch.cuda.empty_cache()
+    got = predict(card)
+    launched = counts()
+    cpu = load_model(path, build_model(), device="cpu")
+    on_cpu = compare(cpu, "cpu")
+    ref_cpu = compare(model, "cpu")
+    model._to_device(dev)
+    on_card = compare(card, dev)
+
+    def rel(a, b):
+        return max(((x.cpu() - y.cpu()).abs().max() / y.abs().max()).item()
+                   for x, y in zip(a, b))
+
+    bitwise = all(torch.equal(a, b) for a, b in zip(ref, got))
+    out = {"card_bitwise": bitwise, "cpu_vs_original_on_cpu_rel": rel(on_cpu, ref_cpu),
+           "card_vs_cpu_mean_rel": rel(on_card[:1], on_cpu[:1]),
+           "card_vs_cpu_var_rel": rel(on_card[1:], on_cpu[1:]) if len(on_cpu) > 1 else None,
+           "card_device": str(card.X_train.device), "cpu_device": str(cpu.X_train.device),
+           "file_bytes": os.path.getsize(path + ".npz")}
+    print(f"checkpoint {label}: " + json.dumps(out), flush=True)
+    if not bitwise:
+        fail(f"checkpoint {label}: the restored model's predict on the card differs")
+    if card.X_train.device.type != "cuda" or cpu.X_train.device.type != "cpu":
+        fail(f"checkpoint {label}: restored on {card.X_train.device} and {cpu.X_train.device}")
+    if not out["cpu_vs_original_on_cpu_rel"] <= CKPT_RTOL:
+        fail(f"checkpoint {label}: the CPU restore differs from the original on the CPU")
+    if not out["card_vs_cpu_mean_rel"] <= CKPT_CARD_CPU_TOL:
+        fail(f"checkpoint {label}: the card's predictive mean differs from the CPU's")
+    return launched
+
+
+def checkpoint_path(dev, sgp, vigp, vigp_X) -> dict:
+    """save_model and load_model of the single-chain structured fit (predict
+    on CKPT_POINTS points with every draw on the card, and the predictive
+    mean of CKPT_CPU_DRAWS draws on the card and the CPU) and of the viGP
+    config2 model (a batch of its grid)."""
+    X_chk = torch.linspace(0.0, SGP_PREDICT_HI, CKPT_POINTS, device=dev)[:, None]
+
+    def sgp_predict(m):
+        return m.predict(1, X_chk, noiseless=True)
+
+    def sgp_compare(m, device):
+        few = {k: v[:CKPT_CPU_DRAWS] for k, v in m.get_samples().items()}
+        mean, _ = m.predict(1, X_chk.to(device), samples=few, noiseless=True, device=device)
+        return (mean,)
+
+    def vigp_compare(m, device):
+        return m.predict(1, torch.as_tensor(vigp_X, dtype=torch.float32, device=device),
+                         device=device)
+
+    return {"structured ExactGP": _restore_check("structured ExactGP", sgp, structured_gp,
+                                                 sgp_predict, sgp_compare, dev),
+            "viGP config2": _restore_check(
+                "viGP config2", vigp, lambda: gpax_torch.viGP(input_dim=2, kernel="Matern"),
+                lambda m: vigp_compare(m, dev), vigp_compare, dev)}
+
+
+def hypo_linear(x, p):
+    return p["a"] * x + p["b"]
+
+
+def hypo_quadratic(x, p):
+    return p["a"] * x**2 + p["b"]
+
+
+def hypo_prior():
+    return {"a": tppl.sample("a", tdist.Normal(0.0, 2.0)),
+            "b": tppl.sample("b", tdist.Normal(0.0, 2.0))}
+
+
+def hypo_path() -> dict:
+    """examples/hypothesis_learning.py on the card: linear and quadratic
+    hypotheses of 1.5x² − 0.5 + N(0, 0.05²) on a HYPO_GRID grid of [−1, 1],
+    HYPO_START points measured to start, HYPO_ROUNDS rounds: the bandit
+    (eps-greedy, eps 0.3, numpy seed 0) picks a hypothesis, ``hypo.step``
+    fits it (sPM on even rounds, the hypothesis as an ExactGP's mean on
+    odd ones), its reward −mean(obj) goes to ``update_record``, and its
+    most uncertain point is measured next."""
+    rng = np.random.default_rng(0)
+    np.random.seed(0)
+    grid = np.linspace(-1.0, 1.0, HYPO_GRID).astype(np.float32)
+    measured = [int(i) for i in rng.choice(HYPO_GRID, HYPO_START, replace=False)]
+    y_all = (1.5 * grid**2 - 0.5 + 0.05 * rng.normal(size=HYPO_GRID)).astype(np.float32)
+    models = ((hypo_linear, hypo_prior), (hypo_quadratic, hypo_prior))
+    record = np.zeros((len(models), 2))
+    launched, rounds = {}, []
+    for r in range(HYPO_ROUNDS):
+        wrap = r % 2 == 1
+        k = sample_next(record[:, 1], "eps-greedy", eps=0.3)
+        fn, prior = models[k]
+        unmeasured = [i for i in range(HYPO_GRID) if i not in set(measured)]
+        reset_counts()
+        t0 = time.perf_counter()
+        obj, _ = hypo.step(fn, prior, grid[measured], y_all[measured], grid[unmeasured],
+                           gp_wrap=wrap, num_warmup=HYPO_WARMUP, num_samples=HYPO_SAMPLES,
+                           print_summary=False)
+        torch.cuda.synchronize()
+        launched[f"round {r}"] = counts()
+        if not (tuple(obj.shape) == (len(unmeasured),) and bool(torch.isfinite(obj).all())
+                and bool((obj >= 0).all())):
+            fail(f"hypothesis learning round {r}: obj of shape {tuple(obj.shape)} (want "
+                 f"{len(unmeasured)}), non-finite or negative")
+        if wrap:
+            require_launches("hypothesis learning GP-wrapped", {f"round {r}": counts()},
+                             ("gram", "trtri"))
+        reward = -float(obj.mean())
+        record = update_record(record, k, reward)
+        nxt = unmeasured[int(np.argmax(obj.cpu().numpy()))]
+        measured.append(nxt)
+        rounds.append({"round": r, "gp_wrap": wrap, "hypothesis": k,
+                       "s": time.perf_counter() - t0, "measured": len(measured) - 1,
+                       "reward": reward, "next_x": float(grid[nxt]),
+                       "launches": launched[f"round {r}"]})
+    print("hypothesis learning: " + json.dumps({"grid": HYPO_GRID, "rounds": rounds,
+                                                "record": record.tolist()}), flush=True)
+    if not (record[:, 0] > 0).all():
+        fail(f"hypothesis learning: a hypothesis was never fitted ({record.tolist()})")
+    if not record[1, 1] > record[0, 1]:
+        fail(f"hypothesis learning: the quadratic's mean reward {record[1, 1]} is not above "
+             f"the linear's {record[0, 1]}")
+    return launched
+
+
 @contextlib.contextmanager
 def phase(name: str):
     """Print the wall time of the block."""
@@ -2177,9 +2501,8 @@ def main() -> None:
         del model
         torch.cuda.empty_cache()
     with phase("viGP config2"):
-        paths["viGP config2"], model, X_new = vigp_path()
-        check_vigp_shapes(model, X_new)
-    del model
+        paths["viGP config2"], vigp, vigp_X = vigp_path()
+        check_vigp_shapes(vigp, vigp_X)
     torch.cuda.empty_cache()
     with phase("MultiTaskGP config4"):
         paths["MultiTaskGP config4"], model, X_test, X_kg, key = config4_path()
@@ -2201,6 +2524,19 @@ def main() -> None:
         paths["viMTDKL"] = mtdkl_path()
     with phase("BNN"):
         bnn_path()
+    torch.cuda.empty_cache()
+    with phase("structured ExactGP"):
+        paths["structured ExactGP"], sgp, lock = structured_path(dev)
+        check_lockstep_shapes(lock, "matern52", "structured lockstep fit")
+    del lock
+    torch.cuda.empty_cache()
+    with phase("checkpoint"):
+        for label, launched in checkpoint_path(dev, sgp, vigp, vigp_X).items():
+            paths[f"checkpoint {label}"] = {"save, load and predict": launched}
+    del sgp, vigp
+    torch.cuda.empty_cache()
+    with phase("hypothesis learning"):
+        paths["hypothesis learning"] = hypo_path()
 
     def launches(k):
         by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}

@@ -10,7 +10,8 @@ acquisition functions of Bayesian optimization (``acquisition``), the
 SVI family: ``viGP`` and the sparse ``viSparseGP``, and the NN-coupled
 models on its own NN modules (``nn``): ``viDKL`` with its batched
 ensembles and channels, ``viMTDKL``, the NUTS-fitted ``DKL``, and ``sPM``
-and ``BNN``. Its three
+and ``BNN``; with their priors (``priors``), hypothesis learning
+(``hypo``, ``sample_next``), checkpoints and monitoring (``utils``). Its
 hand-written Hopper kernels, the fused gram (K1, ``ops/gram.py``), the
 triangular tile inverse (K2) and the tile Cholesky and inverse (K3, both
 ``ops/chol.py``), launch on CUDA tensors; on CPU tensors their plain
@@ -20,8 +21,10 @@ matmuls to full precision (``config.py``).
 """
 
 from . import config  # noqa: F401  (first: pins fp32 matmul precision)
-from . import acquisition, distributions, infer, kernels, nn, ops, ppl, utils
+from . import acquisition, distributions, infer, kernels, nn, ops, ppl, priors, utils
+from . import hypo
 from .config import get_config, set_config
+from .hypo import sample_next
 from .models import (
     BNN,
     DKL,
@@ -54,7 +57,9 @@ __all__ = [
     "nn",
     "ops",
     "ppl",
+    "priors",
     "utils",
+    "hypo",
     "get_config",
     "set_config",
     "ExactGP",
@@ -74,4 +79,5 @@ __all__ = [
     "viMTDKL",
     "sPM",
     "BNN",
+    "sample_next",
 ]

@@ -1,7 +1,10 @@
 from . import constraints
 from .distributions import (
     Cauchy,
+    Delta,
     Distribution,
+    Exponential,
+    Gamma,
     HalfCauchy,
     HalfNormal,
     Independent,
@@ -9,8 +12,9 @@ from .distributions import (
     LowRankMultivariateNormal,
     MultivariateNormal,
     Normal,
+    Uniform,
 )
-from .transforms import ExpTransform, IdentityTransform, Transform, biject_to
+from .transforms import ExpTransform, IdentityTransform, SigmoidTransform, Transform, biject_to
 
 __all__ = [
     "constraints",
@@ -18,12 +22,17 @@ __all__ = [
     "Transform",
     "IdentityTransform",
     "ExpTransform",
+    "SigmoidTransform",
     "Distribution",
     "Normal",
     "LogNormal",
     "HalfNormal",
-    "HalfCauchy",
     "Cauchy",
+    "HalfCauchy",
+    "Gamma",
+    "Exponential",
+    "Uniform",
+    "Delta",
     "Independent",
     "MultivariateNormal",
     "LowRankMultivariateNormal",

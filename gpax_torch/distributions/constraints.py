@@ -1,5 +1,5 @@
-"""Support constraints (counterpart of ``gpax_tpu/distributions/constraints.py``;
-the supports of this slice: real, real_vector, positive)."""
+"""Support constraints (counterpart of ``gpax_tpu/distributions/constraints.py``):
+real, real_vector, positive, nonnegative and the open interval."""
 
 from __future__ import annotations
 
@@ -33,6 +33,31 @@ class _Positive(Constraint):
         return value > 0
 
 
+class _Nonnegative(Constraint):
+    def __call__(self, value):
+        return value >= 0
+
+
+class Interval(Constraint):
+    """The open interval (low, high); the bounds are floats or tensors."""
+
+    def __init__(self, low, high):
+        self.low = low
+        self.high = high
+
+    def __call__(self, value):
+        return (value > self.low) & (value < self.high)
+
+    def __repr__(self):
+        return f"Interval({self.low}, {self.high})"
+
+
 real = _Real()
 real_vector = _RealVector()
 positive = _Positive()
+nonnegative = _Nonnegative()
+unit_interval = Interval(0.0, 1.0)
+
+
+def interval(low, high) -> Interval:
+    return Interval(low, high)

@@ -209,6 +209,122 @@ class Cauchy(Distribution):
         return torch.full(self.batch_shape, math.nan, dtype=self.loc.dtype)
 
 
+def _on(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A parameter on ``like``'s device: bounds taken from data on the card
+    meet values or draws on another device."""
+    return t if t.device == like.device else t.to(like.device)
+
+
+class Gamma(Distribution):
+    """Gamma(concentration, rate) (``distributions.py:223-249``); draws by
+    ``torch._standard_gamma`` with the key on its device."""
+
+    support = constraints.positive
+
+    def __init__(self, concentration, rate=1.0):
+        self.concentration = _as(concentration)
+        self.rate = _as(rate)
+        self.batch_shape = _bshape(self.concentration.shape, self.rate.shape)
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        conc = _on(self.concentration, torch.empty(0, device=key.device))
+        draws = torch._standard_gamma(conc.expand(shape).contiguous(), generator=key)
+        return draws / _on(self.rate, draws)
+
+    def log_prob(self, value):
+        c, r = _on(self.concentration, value), _on(self.rate, value)
+        return c * torch.log(r) + (c - 1.0) * torch.log(value) - r * value - torch.lgamma(c)
+
+    @property
+    def mean(self):
+        return (self.concentration / self.rate).expand(self.batch_shape)
+
+    @property
+    def variance(self):
+        return (self.concentration / self.rate**2).expand(self.batch_shape)
+
+
+class Exponential(Distribution):
+    """Exponential(rate) (``distributions.py:252-270``)."""
+
+    support = constraints.positive
+
+    def __init__(self, rate=1.0):
+        self.rate = _as(rate)
+        self.batch_shape = tuple(self.rate.shape)
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        eps = torch.empty(shape, dtype=self.rate.dtype, device=key.device).exponential_(
+            generator=key)
+        return eps / _on(self.rate, eps)
+
+    def log_prob(self, value):
+        rate = _on(self.rate, value)
+        return torch.log(rate) - rate * value
+
+    @property
+    def mean(self):
+        return (1.0 / self.rate).expand(self.batch_shape)
+
+
+class Uniform(Distribution):
+    """Uniform(low, high) (``distributions.py:273-295``), supported on the
+    interval of its own bounds (so NUTS takes it through the sigmoid).
+    ``log_prob`` is −log(high − low) on [low, high], the bounds included,
+    and −inf outside."""
+
+    def __init__(self, low=0.0, high=1.0):
+        self.low = _as(low)
+        self.high = _as(high)
+        self.batch_shape = _bshape(self.low.shape, self.high.shape)
+        self.support = constraints.interval(self.low, self.high)
+
+    def sample(self, key, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        u = torch.rand(shape, generator=key, device=key.device, dtype=self.low.dtype)
+        low, high = _on(self.low, u), _on(self.high, u)
+        return low + (high - low) * u
+
+    def log_prob(self, value):
+        low, high = _on(self.low, value), _on(self.high, value)
+        inside = (value >= low) & (value <= high)
+        return torch.where(inside, -torch.log(high - low), -math.inf)
+
+    @property
+    def mean(self):
+        return (0.5 * (self.low + self.high)).expand(self.batch_shape)
+
+
+class Delta(Distribution):
+    """A point mass at ``value`` with ``log_density`` (``distributions.py:298-321``);
+    its rightmost ``event_dim`` dims are the event."""
+
+    support = constraints.real
+
+    def __init__(self, value=0.0, log_density=0.0, event_dim: int = 0):
+        self.value = _as(value)
+        self.log_density = _as(log_density)
+        shape = tuple(self.value.shape)
+        cut = len(shape) - event_dim
+        self.batch_shape = shape[:cut]
+        self.event_shape = shape[cut:]
+
+    def sample(self, key, sample_shape=()):
+        return self.value.expand(tuple(sample_shape) + tuple(self.value.shape))
+
+    def log_prob(self, value):
+        lp = self.log_density.expand(self.batch_shape)
+        if self.event_dim:
+            return lp
+        return lp.expand(_bshape(torch.as_tensor(value).shape, self.value.shape))
+
+    @property
+    def mean(self):
+        return self.value
+
+
 class MultivariateNormal(Distribution):
     """MVN parameterized by covariance matrix or its Cholesky factor.
 

@@ -4,9 +4,13 @@
 
 Several chains under ``chain_method="vectorized"`` run in lockstep
 (``nuts.run_nuts_segmented_chains``, ``gpax_tpu/infer/mcmc.py:243-307``):
-one batched potential per leapfrog for all chains, so the model must carry
-a leading chain dim on its latents. "parallel" runs the same lockstep
-program on the data's one device, as the JAX package does with one device.
+one batched potential per leapfrog for all chains where the model carries
+a leading chain dim on its latents. A model that cannot (its batched
+potential raises, or returns other values than its single chains at the
+initial point) runs chain by chain inside the lockstep tree, C potentials
+a leapfrog, and says so with one ``UserWarning``. "parallel" runs the same
+lockstep program on the data's one device, as the JAX package does with
+one device.
 "sequential" runs the chains one after another (``nuts.run_nuts_segmented``),
 and one chain runs that way whatever the ``chain_method``. Chain 0 starts
 from the median init and the others from it jittered by U(−1, 1) in the
@@ -27,7 +31,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..ppl import initialize_model, seed, substitute
+from ..ppl import initialize_model, make_potential_fn, seed, substitute
 from ..ppl import trace as ppl_trace
 from ..utils.utils import spawn
 from . import diagnostics
@@ -41,26 +45,12 @@ def _device_of(args, kwargs) -> torch.device:
     return torch.device("cpu")
 
 
-def _named_potential(potential_fn, model, num_chains: int):
-    """The batched potential, whose first failure names the model that
-    cannot carry the chain dim (no retry chain by chain)."""
-    checked = []
-
-    def potential(z):
-        if checked:
-            return potential_fn(z)
-        try:
-            u = potential_fn(z)
-        except (RuntimeError, ValueError) as e:
-            name = getattr(model, "__qualname__", repr(model))
-            raise ValueError(
-                f"the model {name} cannot carry a leading chain dim of {num_chains} on "
-                f"its latents, which lockstep chains need; run it with "
-                f"chain_method='sequential' ({e})") from e
-        checked.append(True)
-        return u
-
-    return potential
+def _named(potential_fn, model, num_chains: int):
+    """The batched potential, named after the model for the warning of a
+    model that runs chain by chain."""
+    name = getattr(model, "__qualname__", repr(model))
+    potential_fn.__qualname__ = f"the model {name} (batched over {num_chains} chains)"
+    return potential_fn
 
 
 class MCMC:
@@ -83,6 +73,7 @@ class MCMC:
         self.timing: Dict[str, float] = {}
         self.num_leapfrogs = 0  # warmup + sampling, each chain's own trees, last run
         self.num_lockstep_leapfrogs = 0  # calls of the (batched) potential, last run
+        self.chain_by_chain = False  # lockstep chains whose potentials ran one by one
         self._samples_by_chain: Optional[Dict[str, torch.Tensor]] = None
         self._stats: Optional[Dict[str, torch.Tensor]] = None
 
@@ -143,11 +134,13 @@ class MCMC:
             jitter = 2.0 * torch.rand((self.num_chains,) + flat.shape, generator=key,
                                       dtype=flat.dtype, device=device) - 1.0
             jitter[0] = 0.0  # chain 0 keeps the median init
+            single = make_potential_fn(model, info.transforms, model_args, model_kwargs)
             zs, st, _ = run_nuts_segmented_chains(
-                _named_potential(info.potential_fn, model, self.num_chains),
-                unravel(flat + jitter), key, **run, **window)
+                single, unravel(flat + jitter), key, self.num_chains, **run, **window,
+                batched_potential_fn=_named(info.potential_fn, model, self.num_chains))
             self.num_leapfrogs = int(st["segment_leapfrogs"].sum())
             self.num_lockstep_leapfrogs = int(st.pop("segment_lockstep_leapfrogs").sum())
+            self.chain_by_chain = bool(st.pop("chain_by_chain"))
             # run-level stats get a leading dim of one, as one chain's do
             stats = {k: (v[None] if k in _SEGMENT_STATS else v).cpu()
                      for k, v in st.items() if k not in drop}

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import math
 import time
+import warnings
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
@@ -342,24 +343,43 @@ def run_nuts_segmented(potential_fn: Callable, init_unconstrained: Dict[str, tor
         unravel
 
 
-def run_nuts_segmented_chains(potential_fn: Callable,
-                              init_unconstrained_batch: Dict[str, torch.Tensor],
-                              rng_key: torch.Generator, num_warmup: int, num_samples: int,
-                              segment_size: int = 50, max_tree_depth: int = 10,
-                              target_accept_prob: float = 0.8, init_step_size: float = 1.0,
-                              progress: bool = False, dense_mass: bool = False,
-                              collect_warmup: bool = False,
+def run_nuts_segmented_chains(potential_fn: Callable, init_unconstrained_batch,
+                              rng_key: torch.Generator, num_chains: int, num_warmup: int,
+                              num_samples: int, segment_size: int = 50,
+                              max_tree_depth: int = 10, target_accept_prob: float = 0.8,
+                              init_step_size: float = 1.0, progress: bool = False,
+                              shard_put: Optional[Callable] = None, warmup_depth_cap=None,
+                              dense_mass: bool = False,
                               segment_callback: Optional[Callable] = None,
-                              deadline: Optional[float] = None, warmup_depth_cap=None):
-    """C chains in lockstep (``gpax_tpu/infer/nuts.py:672-870``): every
-    leapfrog is one call of the batched potential ``potential_fn``, which
-    maps latents with a leading chain dim (C, …) to the (C,) potentials;
-    the gradient is that of their sum, each chain's own. The chains share
-    the adaptation plan (the warmup flags and the depth cap) and keep their
-    own step size, mass matrix, dual averaging and Welford sums.
+                              deadline: Optional[float] = None, collect_warmup: bool = False,
+                              batched_potential_fn: Optional[Callable] = None):
+    """``num_chains`` chains in lockstep (``gpax_tpu/infer/nuts.py:672-870``,
+    whose signature this is, ``collect_warmup`` and ``batched_potential_fn``
+    added). The chains share the adaptation plan (the warmup flags and the
+    depth cap) and keep their own step size, mass matrix, dual averaging
+    and Welford sums.
+
+    ``potential_fn`` is one chain's potential, as in the JAX package, where
+    it is vmapped. ``batched_potential_fn``, if given, is the same
+    potential over latents with a leading chain dim (C, …) → (C,), such as
+    ``initialize_model(..., batch_shape=(C,)).potential_fn``: every
+    leapfrog is then one call of it for all chains, the gradient that of
+    its sum. It is trusted only if, at the initial point, it returns shape
+    (C,) and equals the C single-chain potentials (to 1e-4 relative).
+    Otherwise, or without it, each leapfrog evaluates ``potential_fn`` and
+    its gradient chain by chain, C calls stacked; a rejected batched
+    potential says so with a ``UserWarning``. A model whose batch
+    broadcasts wrong (its values differ) is caught as well as one that
+    raises.
 
     ``init_unconstrained_batch`` holds each chain's initial latents, (C, …)
-    per site. After each segment of ``segment_size`` transitions,
+    per site, or is a callable ``init_batch(key)`` that returns them and is
+    called with ``rng_key``. ``num_chains`` must equal its leading dim.
+    ``shard_put`` places the chain dim on a device mesh in the JAX package;
+    the port runs lockstep chains on one device and refuses anything but
+    None.
+
+    After each segment of ``segment_size`` transitions,
     ``segment_callback`` (if given) gets a dict of ``segments_done``,
     ``n_segments``, ``steps_done``, ``total_steps``, ``num_chains``,
     ``wall_s`` and the per-segment lists ``segment_wall_s`` and
@@ -378,31 +398,78 @@ def run_nuts_segmented_chains(potential_fn: Callable,
     ``potential_energy`` and ``step_size`` are (C, draws) and cover
     sampling only unless ``collect_warmup``; ``segment_wall_s``,
     ``segment_leapfrogs`` (every transition run, warmup included, summed
-    over the chains) and ``segment_lockstep_leapfrogs`` (the batched
-    potential's calls) are per segment; ``warmup_steps_run`` and
+    over the chains) and ``segment_lockstep_leapfrogs`` (the rounds of
+    potential evaluations) are per segment; ``warmup_steps_run``,
     ``accept_mean_all`` (the mean accept probability of every transition
-    run by every chain) are scalars.
+    run by every chain) and ``chain_by_chain`` (whether the chains'
+    potentials ran one by one) are scalars.
     """
-    names = list(init_unconstrained_batch)
-    z0 = torch.cat([init_unconstrained_batch[k].reshape(
-        init_unconstrained_batch[k].shape[0], -1) for k in names], -1)
-    _, unravel = ravel({k: v[0] for k, v in init_unconstrained_batch.items()})
-
-    def potential_grad(zf):
-        with torch.enable_grad():
-            zf = zf.detach().requires_grad_(True)
-            u = potential_fn(unravel(zf))
-            if tuple(u.shape) != tuple(zf.shape[:1]):
-                raise ValueError(f"the batched potential returned shape {tuple(u.shape)} "
-                                 f"for {zf.shape[0]} chains")
-            (g,) = torch.autograd.grad(u.sum(), zf)
-        return u.detach(), g
-
+    if shard_put is not None:
+        raise ValueError("shard_put places the chain dim on a device mesh; gpax_torch runs "
+                         "lockstep chains on one device (parallel/ is not ported): pass None")
+    batch = (init_unconstrained_batch(rng_key) if callable(init_unconstrained_batch)
+             else init_unconstrained_batch)
+    names = list(batch)
+    z0 = torch.cat([batch[k].reshape(batch[k].shape[0], -1) for k in names], -1)
+    if z0.shape[0] != num_chains:
+        raise ValueError(f"num_chains={num_chains} but the initial batch holds "
+                         f"{z0.shape[0]} chains")
+    _, unravel = ravel({k: v[0] for k, v in batch.items()})
+    potential_grad, chain_by_chain = _chains_potential_grad(
+        potential_fn, batched_potential_fn, z0, unravel)
     zs, stats = _run_lockstep(
         potential_grad, z0, rng_key, num_warmup, num_samples, segment_size,
         max_tree_depth, target_accept_prob, init_step_size, progress, dense_mass,
         collect_warmup, segment_callback, deadline, warmup_depth_cap)
+    stats["chain_by_chain"] = torch.tensor(chain_by_chain)
     return zs, stats, unravel
+
+
+def _chains_potential_grad(potential_fn: Callable, batched_potential_fn: Optional[Callable],
+                           z0: torch.Tensor, unravel: Callable):
+    """The map (C, dim) → ((C,), (C, dim)) of the chains' potentials and
+    gradients, and whether it runs chain by chain: the batched potential's
+    if it passes the check at z0 (see :func:`run_nuts_segmented_chains`),
+    else C calls of one chain's."""
+
+    def per_chain(zf):
+        us, gs = [], []
+        for z in zf:
+            with torch.enable_grad():
+                z1 = z.detach().requires_grad_(True)
+                u = potential_fn(unravel(z1))
+                (g,) = torch.autograd.grad(u, z1)
+            us.append(u.detach())
+            gs.append(g)
+        return torch.stack(us), torch.stack(gs)
+
+    def batched(zf):
+        with torch.enable_grad():
+            zf = zf.detach().requires_grad_(True)
+            u = batched_potential_fn(unravel(zf))
+            (g,) = torch.autograd.grad(u.sum(), zf)
+        return u.detach(), g
+
+    if batched_potential_fn is None:
+        return per_chain, True
+    with torch.no_grad():
+        single = torch.stack([potential_fn(unravel(z)) for z in z0])
+        try:
+            u = batched_potential_fn(unravel(z0))
+            why = (f"it returned shape {tuple(u.shape)} for {z0.shape[0]} chains"
+                   if tuple(u.shape) != tuple(single.shape) else
+                   None if bool(((u - single).abs() <= 1e-4 * (1.0 + single.abs())).all())
+                   else f"its values {u.tolist()} differ from the single chains' "
+                        f"{single.tolist()}")
+        except (RuntimeError, ValueError) as e:
+            why = f"it raised {type(e).__name__}: {e}"
+    if why is None:
+        return batched, False
+    name = getattr(batched_potential_fn, "__qualname__", repr(batched_potential_fn))
+    warnings.warn(f"{name} cannot carry a leading chain dim of {z0.shape[0]} on its latents "
+                  f"({why}); the lockstep chains evaluate it chain by chain, "
+                  f"{z0.shape[0]} calls a leapfrog", UserWarning, stacklevel=3)
+    return per_chain, True
 
 
 def _run_lockstep(potential_grad, z0, rng_key, num_warmup, num_samples, segment_size,

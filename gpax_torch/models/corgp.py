@@ -24,6 +24,7 @@ class CoregGP(ExactGP):
 
     _exact_moments_ok = False
     _default_dense_mass = True
+    _draw_site = ("noise", 1)  # one noise a task
 
     def __init__(self, input_dim: int, data_kernel="RBF",
                  mean_fn: Optional[Callable] = None,
@@ -64,10 +65,7 @@ class CoregGP(ExactGP):
             noise = ppl.sample("noise", dist.LogNormal(zeros, torch.ones_like(zeros)).to_event(1))
         k = self.kernel(X, X, kernel_params, noise)
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
         ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)
 
     def _sample_task_kernel_params(self, n_tasks: int, rank: int,

@@ -35,6 +35,7 @@ from ..infer import MCMC, NUTS
 from ..kernels import get_kernel
 from ..ops.fused_density import gp_mvn_log_prob
 from ..ops.linalg import gp_predictive_mean_var, gp_predictive_moments, robust_mvn_sample
+from ..utils.fn import call_batched
 from ..utils.utils import device_memory_budget, resolve_device, spawn, split_in_batches
 
 kernel_fn_type = Callable[..., torch.Tensor]
@@ -50,7 +51,9 @@ class ExactGP:
         input_dim: number of input feature dimensions (ARD lengthscale size).
         kernel: 'RBF' | 'Matern' | 'Periodic' or a kernel callable with
             signature ``k(X, Z, params, noise=0, jitter=None)``.
-        mean_fn: optional deterministic mean function ``m(X)`` or ``m(X, params)``.
+        mean_fn: optional deterministic mean function ``m(X)`` or ``m(X, params)``,
+            written for one draw of ``params``: lockstep chains and chunks of
+            predictive draws map it over their draws (``utils.fn.call_batched``).
         kernel_prior: optional custom prior program returning kernel params.
         mean_fn_prior: optional prior program returning mean-fn params.
         noise_prior: deprecated prior program for the noise.
@@ -116,10 +119,7 @@ class ExactGP:
             # per point: (n,), or (C, n) for a batch of lockstep chains
             noise = (noise[..., None] if torch.as_tensor(noise).ndim else noise) + noise_mask
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
         if y is not None and self._fused_likelihood_ok(X, kernel_params):
             # one autograd node from the gram to the density, closed-form
             # θ-gradients (ops/fused_density.py)
@@ -265,17 +265,40 @@ class ExactGP:
 
     # ------------------------------------------------------------ prediction
 
+    def _mean_prior(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The mean function's sampled parameters (None without a prior)."""
+        return self.mean_fn_prior() if self.mean_fn_prior is not None else None
+
+    def _mean_at(self, X: torch.Tensor, params, batch_ndim: int,
+                 x_batched: bool = False) -> torch.Tensor:
+        """The mean function at X, squeezed, for draws of its parameters that
+        carry ``batch_ndim`` leading batch dims. The user's function is
+        written for one draw; ``utils.fn.call_batched`` maps it over the
+        draws, as the JAX package's vmap does. ``params`` of None (no
+        ``mean_fn_prior``) calls ``mean_fn(X)``."""
+        if self.mean_fn_prior is None:
+            params = None
+        return call_batched(self.mean_fn, X, params,
+                            batch_ndim if params is not None or x_batched else 0,
+                            x_batched, squeeze=True)
+
+    # a site with one value per draw, and its event ndim: the leading dims
+    # that the predictive params carry beyond it are a batch of draws
+    _draw_site = ("noise", 0)
+
+    def _draw_ndim(self, params) -> int:
+        name, event_ndim = self._draw_site
+        return torch.as_tensor(params[name]).ndim - event_ndim
+
     def _residual(self, params) -> torch.Tensor:
         y = self.y_train
         if self.mean_fn is not None:
-            args = [self.X_train, params] if self.mean_fn_prior else [self.X_train]
-            y = y - self.mean_fn(*args).squeeze()
+            y = y - self._mean_at(self.X_train, params, self._draw_ndim(params))
         return y
 
     def _add_mean(self, mean, X_new, params) -> torch.Tensor:
         if self.mean_fn is not None:
-            args = [X_new, params] if self.mean_fn_prior else [X_new]
-            mean = mean + self.mean_fn(*args).squeeze()
+            mean = mean + self._mean_at(X_new, params, self._draw_ndim(params))
         return mean
 
     def get_mvn_posterior(self, X_new: torch.Tensor, params: Dict[str, torch.Tensor],

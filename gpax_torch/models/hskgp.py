@@ -21,7 +21,7 @@ from .. import distributions as dist
 from .. import ppl
 from ..kernels import get_kernel
 from ..ops.linalg import cho_solve, gp_predictive_moments, safe_cholesky
-from ..utils.fn import _set_noise_kernel_fn
+from ..utils.fn import _set_noise_kernel_fn, call_batched
 from .gp import ExactGP
 
 kernel_fn_type = Callable[..., torch.Tensor]
@@ -31,6 +31,7 @@ class VarNoiseGP(ExactGP):
     """GP with input-dependent (GP-modeled) observational noise."""
 
     _exact_moments_ok = False  # noise is a latent field, not params["noise"]
+    _draw_site = ("log_var", 1)
 
     def __init__(self, input_dim: int, kernel: Union[str, kernel_fn_type],
                  noise_kernel: Union[str, kernel_fn_type] = "RBF",
@@ -63,10 +64,10 @@ class VarNoiseGP(ExactGP):
         else:
             noise_kernel_params = self._sample_noise_kernel_params()
         if self.noise_mean_fn is not None:
-            args = [X]
-            if self.noise_mean_fn_prior is not None:
-                args += [self.noise_mean_fn_prior()]
-            noise_f_loc = noise_f_loc + torch.log(self.noise_mean_fn(*args)).squeeze()
+            prior = self.noise_mean_fn_prior
+            noise_f_loc = noise_f_loc + torch.log(call_batched(
+                self.noise_mean_fn, X, prior() if prior is not None else None,
+                ppl.batch_ndim() if prior is not None else 0, squeeze=True))
         k_noise = self.noise_kernel(X, X, noise_kernel_params, 0, **kwargs)
         points_log_var = ppl.sample(
             "log_var", dist.MultivariateNormal(loc=noise_f_loc, covariance_matrix=k_noise))
@@ -77,10 +78,7 @@ class VarNoiseGP(ExactGP):
         else:
             kernel_params = self._sample_kernel_params()
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
         # K + diag(exp(log_var)): the per-point variance is the gram's noise
         k = self.kernel(X, X, kernel_params, torch.exp(points_log_var), **kwargs)
         ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)
@@ -94,8 +92,11 @@ class VarNoiseGP(ExactGP):
         return {"k_noise_length": noise_length, "k_noise_scale": noise_scale}
 
     def _noise_mean(self, X: torch.Tensor, params) -> torch.Tensor:
-        margs = [X, params] if self.noise_mean_fn_prior else [X]
-        return torch.log(self.noise_mean_fn(*margs)).squeeze()
+        """log of the noise mean function at X for a draw or a batch of draws."""
+        if self.noise_mean_fn_prior is None:
+            return torch.log(self.noise_mean_fn(X)).squeeze()
+        return torch.log(call_batched(self.noise_mean_fn, X, params, self._draw_ndim(params),
+                                      squeeze=True))
 
     def get_mvn_posterior(self, X_new: torch.Tensor, params: Dict[str, torch.Tensor],
                           *args, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,8 +130,7 @@ class VarNoiseGP(ExactGP):
         if self.noise_mean_fn is not None:
             X = self.X_train.squeeze()
             if self.noise_mean_fn_prior is not None:
-                mean_ = torch.stack([self.noise_mean_fn(X, {k: v[i] for k, v in samples.items()})
-                                     for i in range(log_var.shape[0])])
+                mean_ = call_batched(self.noise_mean_fn, X, samples, 1)
             else:
                 mean_ = self.noise_mean_fn(X)
             log_var = log_var + torch.log(mean_)

@@ -51,10 +51,7 @@ class MeasuredNoiseGP(ExactGP):
         # noise is observed, not inferred
         ppl.deterministic("noise", torch.zeros((), dtype=X.dtype, device=X.device))
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
         # K + diag(measured_noise): the measured variances are the gram's noise
         k = self.kernel(X, X, kernel_params, measured_noise, **kwargs)
         ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)

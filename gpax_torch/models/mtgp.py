@@ -32,6 +32,7 @@ class MultiTaskGP(ExactGP):
 
     _exact_moments_ok = False
     _default_dense_mass = True
+    _draw_site = ("noise", 1)  # one noise a task
 
     def __init__(self, input_dim: int, data_kernel="RBF",
                  num_latents: Optional[int] = None, shared_input_space: bool = False,
@@ -79,10 +80,7 @@ class MultiTaskGP(ExactGP):
         noise = self.noise_prior() if self.noise_prior else self._sample_noise(X)
         k = self.kernel(X, X, kernel_params, noise, **kwargs)
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
         ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)
 
     def _sample_noise(self, X: torch.Tensor) -> torch.Tensor:

@@ -65,10 +65,7 @@ class viSparseGP(viGP):
         noise = self.noise_prior() if self.noise_prior else self._sample_noise()
         D = torch.as_tensor(noise, dtype=X.dtype, device=X.device).expand(X.shape[0])
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
 
         Kuu = self.kernel(Xu, Xu, kernel_params, **kwargs)
         _, Wuu = self._chol_inv(Kuu)

@@ -3,10 +3,11 @@
 
 The user supplies a deterministic model ``m(X, params)`` and a prior
 program; the likelihood is y ~ Normal(m(X, θ), σ). The fit is the port's
-single-chain/sequential NUTS, on the CUDA card unless the caller passes
-``device="cpu"``. ``predict`` evaluates the user's model draw by draw,
-where the JAX package vmaps it: the port makes no assumption that the
-model broadcasts over a batch of parameters.
+NUTS, on the CUDA card unless the caller passes ``device="cpu"``.
+The user's model is written for one draw of its parameters: lockstep
+chains and ``predict`` map it over the draws with
+``utils.fn.call_batched`` (``torch.func.vmap``, or draw by draw where vmap
+cannot run it), as the JAX package vmaps it.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 from .. import distributions as dist
 from .. import ppl
 from ..infer import MCMC, NUTS
+from ..utils.fn import call_batched
 from ..utils.utils import resolve_device, spawn
 
 model_type = Callable[[torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
@@ -43,8 +45,11 @@ class sPM:
 
     def model(self, X: torch.Tensor, y: Optional[torch.Tensor] = None) -> None:
         params = self.model_prior()
-        mu = ppl.deterministic("mu", self._model(X, params))
+        batch_ndim = ppl.batch_ndim()
+        mu = ppl.deterministic("mu", call_batched(self._model, X, params, batch_ndim))
         sig = self.noise_prior() if self.noise_prior else self._sample_noise()
+        if batch_ndim:  # each chain's noise over its own points
+            sig = sig.reshape(sig.shape + (1,) * (mu.ndim - sig.ndim))
         ppl.sample("y", dist.Normal(mu, sig), obs=y)
 
     def _sample_noise(self) -> torch.Tensor:
@@ -99,11 +104,9 @@ class sPM:
             samples = self.get_samples(chain_dim=False)
         samples = {k: torch.as_tensor(v, device=X_new.device) for k, v in samples.items()}
         key = spawn(rng_key, X_new.device)
-        num = len(next(iter(samples.values())))
-        outs = [self.sample_single_posterior_predictive(
-            key, X_new, {k: v[i] for k, v in samples.items()}, n) for i in range(num)]
-        y_pred = torch.stack([o[0] for o in outs])
-        y_sampled = torch.stack([o[1] for o in outs])
+        y_pred = call_batched(self._model, X_new, samples, 1)
+        sigma = samples["noise"].reshape((-1,) + (1,) * (y_pred.ndim - 1))
+        y_sampled = dist.Normal(y_pred, sigma).sample(key, (n,)).mean(0)
         if filter_nans:
             y_sampled = y_sampled[~torch.isnan(y_sampled).flatten(1).any(1)]
         if take_point_predictions_mean:

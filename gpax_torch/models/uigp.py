@@ -57,10 +57,7 @@ class UIGP(ExactGP):
         else:
             noise = self._sample_noise()
         if self.mean_fn is not None:
-            args = [X_prime]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X_prime, self._mean_prior(), ppl.batch_ndim(), x_batched=ppl.batch_ndim() > 0)
         k = self.kernel(X_prime, X_prime, kernel_params, noise, **kwargs)
         ppl.sample("y", dist.MultivariateNormal(loc=f_loc, covariance_matrix=k), obs=y)
 
@@ -87,16 +84,17 @@ class UIGP(ExactGP):
         noise = params["noise"]
         noise_p = noise * (1 - int(noiseless))
         y_residual = self.y_train
+        draws = self._draw_ndim(params)
         if self.mean_fn is not None:
-            args = [X_train_prime, params] if self.mean_fn_prior else [X_train_prime]
-            y_residual = y_residual - self.mean_fn(*args).squeeze()
+            y_residual = y_residual - self._mean_at(X_train_prime, params, draws,
+                                                    x_batched=draws > 0)
         k_pp = self.kernel(X_new, X_new, params, noise_p, **kwargs)
         k_pX = self.kernel(X_new, X_train_prime, params, jitter=0.0)
         k_XX = self.kernel(X_train_prime, X_train_prime, params, noise, **kwargs)
         mean, cov = gp_predictive_moments(k_XX, k_pX, k_pp, y_residual)
         if self.mean_fn is not None:
-            args = [X_new, params] if self.mean_fn_prior else [X_new]
-            mean = mean + self.mean_fn(*args).squeeze()
+            mean = mean + self._mean_at(X_new, params, draws,
+                                        x_batched=X_new.ndim > X_train_prime.ndim - draws)
         return mean, cov
 
     def _predict(self, rng_key: torch.Generator, X_new: torch.Tensor,

@@ -26,6 +26,7 @@ class vExactGP(ExactGP):
     """Exact GP over vector-valued targets with a leading task dimension."""
 
     _exact_moments_ok = False  # task-batched data layout
+    _draw_site = ("noise", 1)  # one noise a task
 
     def __init__(self, input_dim: int, kernel="RBF",
                  mean_fn: Optional[Callable] = None,
@@ -50,10 +51,7 @@ class vExactGP(ExactGP):
         else:
             noise = self._sample_noise(task_dim)
         if self.mean_fn is not None:
-            args = [X]
-            if self.mean_fn_prior is not None:
-                args += [self.mean_fn_prior()]
-            f_loc = f_loc + self.mean_fn(*args).squeeze()
+            f_loc = f_loc + self._mean_at(X, self._mean_prior(), ppl.batch_ndim())
         jitter = kwargs.get("jitter")
         if jitter is None:
             jitter = get_config().default_jitter
@@ -93,6 +91,7 @@ class vExactGP(ExactGP):
         jitter = kwargs.get("jitter")
         if jitter is None:
             jitter = get_config().default_jitter
+        draws = params  # the mean function takes one draw's params, not the tasks'
         params = {k: (v.unsqueeze(-1).expand(v.shape + (task_dim,)) if v.ndim == 1 else v)
                   for k, v in params.items() if v is not None}
         noise = params["noise"]
@@ -100,15 +99,8 @@ class vExactGP(ExactGP):
         k_pp = self.kernel(X_new, X_new, params, noise_p, jitter=jitter)
         k_pX = self.kernel(X_new, self.X_train, params, jitter=0.0)
         k_XX = self.kernel(self.X_train, self.X_train, params, noise, jitter=jitter)
-        y_residual = self.y_train
-        if self.mean_fn is not None:
-            args = [self.X_train, params] if self.mean_fn_prior else [self.X_train]
-            y_residual = y_residual - self.mean_fn(*args).squeeze()
-        mean, cov = gp_predictive_moments(k_XX, k_pX, k_pp, y_residual)
-        if self.mean_fn is not None:
-            args = [X_new, params] if self.mean_fn_prior else [X_new]
-            mean = mean + self.mean_fn(*args).squeeze()
-        return mean, cov
+        mean, cov = gp_predictive_moments(k_XX, k_pX, k_pp, self._residual(draws))
+        return self._add_mean(mean, X_new, draws), cov
 
     def _chunk_size(self, num_samples: int, m: int, with_test_cov: bool) -> int:
         """ExactGP's chunk of draws, for the tasks' grams together."""

@@ -10,6 +10,7 @@ from .linalg import (
     robust_mvn_sample,
     safe_chol_inv,
     safe_cholesky,
+    tri_solve,
 )
 from .panel_chol import panel_chol_factors, panel_cholesky, panel_tri_inv_t
 
@@ -19,6 +20,7 @@ __all__ = [
     "safe_chol_inv",
     "chol_tri_factors",
     "cho_solve",
+    "tri_solve",
     "mvn_log_prob_centered",
     "safe_cholesky",
     "robust_mvn_sample",

@@ -227,6 +227,19 @@ def cho_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return x.squeeze(-1) if vec else x
 
 
+def tri_solve(L: torch.Tensor, B: torch.Tensor, lower: bool = True,
+              trans: bool = False) -> torch.Tensor:
+    """Solve op(L) x = B for triangular L, op(L) = Lᵀ if ``trans``
+    (``linalg.py:323-325``), by the library triangular solve as in the JAX
+    package, batched over L's leading dims. B is a vector per matrix (one
+    dim fewer than L) or a matrix of right-hand sides."""
+    A = L.mT if trans else L
+    vec = B.ndim == L.ndim - 1
+    x = torch.linalg.solve_triangular(A, B.unsqueeze(-1) if vec else B,
+                                      upper=lower if trans else not lower)
+    return x.squeeze(-1) if vec else x
+
+
 def gp_predictive_moments(k_XX, k_pX, k_pp, y) -> Tuple[torch.Tensor, torch.Tensor]:
     """GP posterior mean = k_pX K⁻¹ y and cov = k_pp − k_pX K⁻¹ k_pXᵀ via
     W = L⁻¹ (``linalg.py:328-350``); batched over leading dims."""

@@ -20,6 +20,7 @@ from ..distributions import Distribution
 
 _PPL_STACK = []    # active Messengers, innermost last
 _PLATE_STACK = []  # active plates, outermost first
+_BATCH_STACK = []  # batch shapes of the log densities being evaluated, innermost last
 
 
 class _PlateCtx:
@@ -225,6 +226,15 @@ class block(Messenger):
             msg["_blocked"] = True
 
 
+def batch_ndim() -> int:
+    """The number of leading batch dims that the latents carry in the log
+    density being evaluated: 1 under a batched potential of lockstep chains
+    or an ensemble's ELBO, 0 anywhere else. A model hands it to
+    ``utils.fn.call_batched`` to call a user function written for one
+    draw."""
+    return len(_BATCH_STACK[-1]) if _BATCH_STACK else 0
+
+
 def sum_batched(x: torch.Tensor, batch_shape=(), name: str = "") -> torch.Tensor:
     """Sum of ``x`` over every dim after the leading ``batch_shape``: one
     value per model of a batch (a scalar for ``batch_shape=()``). A 0-d
@@ -247,7 +257,12 @@ def log_density(model: Callable, model_args=(), model_kwargs=None,
     latents carry it as leading dims (one set per model of a batch) and the
     log joint has that shape, each model's own."""
     model_kwargs = model_kwargs or {}
-    sites = trace(substitute(model, data=params or {})).get_trace(*model_args, **model_kwargs)
+    _BATCH_STACK.append(tuple(batch_shape))
+    try:
+        sites = trace(substitute(model, data=params or {})).get_trace(*model_args,
+                                                                      **model_kwargs)
+    finally:
+        _BATCH_STACK.pop()
     log_joint = torch.zeros(())
     for name, site in sites.items():
         if site["type"] == "sample":

@@ -1,7 +1,7 @@
 """General utilities (counterpart of ``gpax_tpu/utils/utils.py``): RNG
-generators, the entry points' device, batching, the device memory budget,
-the count of host reads of device values, inducing points and sparse
-images."""
+generators, the entry points' device, batching of tensors and of dicts,
+the device memory budget, the count of host reads of device values,
+inducing points, sparse images and a distribution's histogram."""
 
 from __future__ import annotations
 
@@ -10,8 +10,8 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["get_keys", "spawn", "resolve_device", "split_in_batches",
-           "device_memory_budget", "host_bool", "host_syncs", "reset_host_syncs",
+__all__ = ["get_keys", "spawn", "resolve_device", "split_in_batches", "split_dict",
+           "random_sample_dict", "dviz", "device_memory_budget", "host_bool", "host_syncs", "reset_host_syncs",
            "initialize_inducing_points", "preprocess_sparse_image", "get_haiku_dict",
            "tree_map"]
 
@@ -64,6 +64,46 @@ def split_in_batches(X_new: torch.Tensor, batch_size: int = 100, dim: int = 0) -
     if dim not in (0, 1):
         raise NotImplementedError("'dim' must be 0 or 1")
     return list(torch.split(X_new, batch_size, dim=dim))
+
+
+def split_dict(data: Dict[str, torch.Tensor], chunk_size: int) -> List[Dict[str, torch.Tensor]]:
+    """Split a dict of equal-length tensors (or arrays) into chunks along the
+    leading dim (``utils.py:49-55``)."""
+    n = len(next(iter(data.values())))
+    return [{k: v[start:min(start + chunk_size, n)] for k, v in data.items()}
+            for start in range(0, n, chunk_size)]
+
+
+def random_sample_dict(data: Dict[str, torch.Tensor], num_samples: int,
+                       rng_key: Union[torch.Generator, int]) -> Dict[str, torch.Tensor]:
+    """The same random rows of every tensor in the dict (``utils.py:58-63``):
+    the first ``num_samples`` of ``torch.randperm`` on the data's device,
+    drawn with a generator there spawned from ``rng_key`` (a generator or an
+    integer seed) unless ``rng_key`` already lives there."""
+    first = next(iter(data.values()))
+    n = len(first)
+    device = first.device if torch.is_tensor(first) else torch.device("cpu")
+    if isinstance(rng_key, int) or rng_key.device != device:
+        rng_key = spawn(rng_key, device)
+    idx = torch.randperm(n, generator=rng_key, device=device)[:num_samples]
+    return {k: v[idx if torch.is_tensor(v) else idx.numpy()] for k, v in data.items()}
+
+
+def dviz(d, samples: int = 1000) -> None:
+    """Histogram of ``samples`` draws of the distribution ``d`` (seed 0), with
+    a KDE where seaborn is installed (``utils.py:84-95``); matplotlib and
+    seaborn are imported only here."""
+    import matplotlib.pyplot as plt
+
+    draws = d.sample(torch.Generator().manual_seed(0), (samples,)).detach().cpu().numpy()
+    plt.figure(dpi=100)
+    try:
+        import seaborn as sns
+
+        sns.histplot(draws, kde=True, fill=False)
+    except ImportError:
+        plt.hist(draws, bins=50, histtype="step")
+    plt.show()
 
 
 def device_memory_budget(device: Optional[torch.device] = None,

@@ -590,3 +590,69 @@ def test_lockstep_chains_launch_k1_and_k2_once_a_lockstep_leapfrog(dev):
         assert lock <= launched <= lock + 30
     assert gp.mcmc.num_leapfrogs > lock
     assert gp.get_samples(chain_dim=True)["noise"].shape == (2, 30)
+
+
+def test_structured_lockstep_fused_leapfrog_launches_k1_and_k2_once(dev):
+    """A structured ExactGP (a mean function written for one draw, a
+    Uniform latent through the sigmoid) with two vectorized chains on the
+    fused route: the batched potential is trusted, and K1 and K2 launch
+    once per lockstep leapfrog for both chains."""
+    rng = np.random.default_rng(0)
+    X = torch.tensor(np.sort(rng.uniform(0, 1.2, 256))[:, None], dtype=torch.float32,
+                     device=dev)
+    y = (1.2 * torch.sin(5 * X[:, 0]) * torch.exp(-0.8 * X[:, 0])
+         + 0.05 * torch.tensor(rng.normal(size=256), dtype=torch.float32, device=dev))
+
+    def osc(x, p):
+        return (p["A"] * torch.sin(p["w"] * x) * torch.exp(-p["d"] * x)).squeeze()
+
+    def osc_prior():
+        return {"A": gpax_torch.ppl.sample("A", gpax_torch.distributions.LogNormal(0.0, 0.5)),
+                "w": gpax_torch.ppl.sample("w", gpax_torch.distributions.Uniform(3.0, 7.0)),
+                "d": gpax_torch.ppl.sample("d", gpax_torch.distributions.LogNormal(0.0, 0.5))}
+
+    gp = gpax_torch.ExactGP(1, "Matern", mean_fn=osc, mean_fn_prior=osc_prior)
+    assert gp._fused_likelihood_ok(X, {"k_length": None, "k_scale": None})
+    k1, k2 = gram.launches, chol.launches
+    gp.fit(0, X, y, num_warmup=30, num_samples=30, num_chains=2, chain_method="vectorized",
+           print_summary=False, progress_bar=False)
+    assert not gp.mcmc.chain_by_chain
+    lock = gp.mcmc.num_lockstep_leapfrogs
+    for launched in (gram.launches - k1, chol.launches - k2):
+        assert lock <= launched <= lock + 30
+    w = gp.get_samples()["w"]
+    assert w.device.type == "cuda" and bool(((w > 3.0) & (w < 7.0)).all())
+
+
+def test_gamma_and_uniform_sample_on_the_card(dev):
+    """Gamma and Uniform draw on the card with a CUDA generator, their
+    parameters where they were made (0-d CPU tensors, or bounds taken from
+    data on the card), and score there."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    X = torch.linspace(1.0, 5.0, 9, device=dev)
+    for d in (gpax_torch.distributions.Gamma(2.0, 3.0), gpax_torch.priors.gamma_dist(r=2.0,
+                                                                                      input_vec=X),
+              gpax_torch.distributions.Uniform(3.0, 7.0), gpax_torch.priors.uniform_dist(
+                  input_vec=X)):
+        draws = d.sample(g, (20000,))
+        assert draws.device.type == "cuda" and draws.shape == (20000,)
+        assert bool(torch.isfinite(d.log_prob(draws)).all())
+        assert abs(draws.mean().item() - d.mean.item()) < 0.05 * abs(d.mean.item())
+
+
+def test_load_model_default_device_is_the_card(dev, tmp_path):
+    """load_model with device=None puts the draws and the data on the card,
+    and predicts there."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, 32).astype(np.float32)
+    y = np.sin(3 * X).astype(np.float32)
+    gp = gpax_torch.ExactGP(1, "RBF")
+    gp.fit(0, X, y, num_warmup=20, num_samples=20, print_summary=False, progress_bar=False,
+           device="cpu")
+    path = str(tmp_path / "gp")
+    gpax_torch.utils.save_model(path, gp)
+    gp2 = gpax_torch.utils.load_model(path, gpax_torch.ExactGP(1, "RBF"))
+    assert gp2.X_train.device.type == "cuda"
+    assert gp2.get_samples()["noise"].device.type == "cuda"
+    mean, _ = gp2.predict(1, np.linspace(-1, 1, 7))
+    assert mean.device.type == "cuda" and bool(torch.isfinite(mean).all())

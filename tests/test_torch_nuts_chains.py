@@ -330,18 +330,21 @@ def test_vectorized_chains_segmented_exactgp(jax_vectorized_fit):
 
 def test_dense_mass_segmented_chains():
     """tests/test_nuts.py:244: (chains, dim, dim) inverse masses through the
-    lockstep runner recover a correlated Gaussian's covariance."""
+    lockstep runner recover a correlated Gaussian's covariance, the call
+    translated as it stands there: one chain's potential, ``num_chains=2``
+    (chain by chain, since no batched potential is given)."""
     cov = torch.tensor([[1.0, 0.9], [0.9, 1.0]])
 
     def model():
         tppl.sample("x", tdist.MultivariateNormal(torch.zeros(2), covariance_matrix=cov))
 
-    info = initialize_model(model, torch.Generator().manual_seed(0), batch_shape=(2,))
+    info = initialize_model(model, torch.Generator().manual_seed(0))
     z0s = {k: v.expand((2,) + v.shape).clone() for k, v in info.init_unconstrained.items()}
     zs, stats, unravel = run_nuts_segmented_chains(
-        info.potential_fn, z0s, torch.Generator().manual_seed(4), num_warmup=200,
-        num_samples=400, segment_size=100, dense_mass=True)
+        info.potential_fn, z0s, torch.Generator().manual_seed(4), num_chains=2,
+        num_warmup=200, num_samples=400, segment_size=100, dense_mass=True)
     assert zs.shape == (2, 400, 2) and stats["num_steps"].shape == (2, 400)
+    assert bool(stats["chain_by_chain"])
     x = info.constrain_fn(unravel(zs))["x"].reshape(-1, 2).numpy()
     np.testing.assert_allclose(np.cov(x.T), cov.numpy(), atol=0.2)
     assert np.isfinite(x).all()
@@ -393,28 +396,34 @@ def test_multichain_freeze_restores_full_tree_depth():
     X, y = _toy()
     gp = gpax_torch.ExactGP(1, "RBF")
     Xt, yt = gp._set_data(X, y, device="cpu")
-    info = initialize_model(gp.model, torch.Generator().manual_seed(0), (Xt, yt),
-                            batch_shape=(2,))
+    gen = torch.Generator().manual_seed(0)
+    info = initialize_model(gp.model, gen, (Xt, yt), batch_shape=(2,))
+    single = initialize_model(gp.model, gen, (Xt, yt)).potential_fn
     z0s = {k: v.expand((2,) + v.shape).clone() for k, v in info.init_unconstrained.items()}
     zs, stats, _ = run_nuts_segmented_chains(
-        info.potential_fn, z0s, torch.Generator().manual_seed(0), num_warmup=20,
-        num_samples=40, segment_size=10, max_tree_depth=6, warmup_depth_cap=(1, 20),
-        deadline=time.perf_counter() - 1.0)
+        single, z0s, torch.Generator().manual_seed(0), 2, 20, 40, segment_size=10,
+        max_tree_depth=6, warmup_depth_cap=(1, 20), deadline=time.perf_counter() - 1.0,
+        batched_potential_fn=info.potential_fn)
+    assert not bool(stats["chain_by_chain"])
     assert int(stats["warmup_steps_run"]) == 10
     assert int(stats["num_steps"].max()) > 1, "the depth cap leaked into post-freeze draws"
     assert zs.shape == (2, 10, 3) and bool(torch.isfinite(zs).all())
 
 
 def test_model_without_a_chain_dim_fails_by_name():
-    """A model whose sites cannot carry the chain dim fails with an error
-    that names it; nothing is retried chain by chain."""
+    """A model whose sites cannot carry the chain dim: its batched potential
+    fails, one warning names the model, and its chains run chain by chain
+    inside the lockstep tree."""
     def flat_model():
         x = tppl.sample("x", tdist.Normal(0.0, 1.0))
         # three terms whatever the latents' shape: no room for a chain dim
         tppl.factor("f", torch.zeros(3) - 0.5 * x.sum() ** 2)
 
-    with pytest.raises(ValueError, match="flat_model"):
-        MCMC(NUTS(flat_model), 5, 5, num_chains=2, chain_method="vectorized").run(0)
+    with pytest.warns(UserWarning, match="flat_model.*chain by chain"):
+        mcmc = MCMC(NUTS(flat_model), 5, 5, num_chains=2, chain_method="vectorized").run(0)
+    assert mcmc.chain_by_chain
+    x = mcmc.get_samples(group_by_chain=True)["x"]
+    assert x.shape == (2, 5) and bool(torch.isfinite(x).all())
 
 
 def test_window_options_warn_without_segments():
@@ -425,3 +434,44 @@ def test_window_options_warn_without_segments():
         mcmc.run(0)
     assert mcmc.get_samples(group_by_chain=True)["x"].shape == (2, 5)
     assert ravel({"a": torch.zeros(2)})[0].shape == (2,)
+
+
+def test_segmented_chains_telemetry():
+    """tests/test_round3.py:212-233, the call translated as it stands there:
+    one chain's ExactGP potential, 2 chains from x and x + 0.1,
+    ``num_chains=2``; per-segment wall and leapfrog telemetry, the totals
+    with warmup's trees."""
+    rng = np.random.default_rng(0)
+    X = torch.as_tensor(rng.uniform(-1, 1, (10, 1)), dtype=torch.float32)
+    y = torch.sin(3 * X[:, 0]) + 0.05 * torch.as_tensor(rng.normal(size=10), dtype=torch.float32)
+    gp = gpax_torch.ExactGP(1, "RBF")
+    gp.X_train, gp.y_train = X, y
+    info = initialize_model(gp.model, torch.Generator().manual_seed(0), (X, y))
+    z0 = {k: torch.stack([v, v + 0.1]) for k, v in info.init_unconstrained.items()}
+    zs, stats, _ = run_nuts_segmented_chains(
+        info.potential_fn, z0, torch.Generator().manual_seed(1), num_chains=2,
+        num_warmup=20, num_samples=20, segment_size=10, max_tree_depth=5)
+    assert zs.shape[0] == 2 and zs.shape[1] == 20
+    assert stats["segment_wall_s"].shape == (4,)
+    assert stats["segment_leapfrogs"].shape == (4,)
+    assert int(stats["segment_leapfrogs"].sum()) >= int(stats["num_steps"].sum())
+
+
+def test_chains_runner_signature_checks():
+    """The reference's positional order (potential, batch, key, num_chains,
+    num_warmup, num_samples, ...): num_chains is checked against the
+    batch, ``shard_put`` is refused on one device, and a callable
+    ``init_batch(key)`` gives the draws of the batch it returns."""
+    info = initialize_model(_normal_model, torch.Generator().manual_seed(0))
+    z0 = {k: torch.stack([v, v + 0.5]) for k, v in info.init_unconstrained.items()}
+    with pytest.raises(ValueError, match="num_chains=3"):
+        run_nuts_segmented_chains(info.potential_fn, z0, torch.Generator(), 3, 5, 5)
+    with pytest.raises(ValueError, match="shard_put"):
+        run_nuts_segmented_chains(info.potential_fn, z0, torch.Generator(), 2, 5, 5,
+                                  shard_put=lambda carry: carry)
+    zs, _, _ = run_nuts_segmented_chains(info.potential_fn, z0,
+                                         torch.Generator().manual_seed(3), 2, 10, 10, 5)
+    keys = []
+    zc, _, _ = run_nuts_segmented_chains(info.potential_fn, lambda k: keys.append(k) or z0,
+                                         torch.Generator().manual_seed(3), 2, 10, 10, 5)
+    assert len(keys) == 1 and torch.equal(zs, zc)
