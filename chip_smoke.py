@@ -12,7 +12,10 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    and batch ∈ {1, 4}, and a batch of 1×1 grams larger than one launch
    takes, and times both at n = m = 4096, d = 1 and at viGP config 2's
    2455 × 2455, d = 2, Matérn (kernel and twin timed in turns,
-   plain-kernel-kernel-plain);
+   plain-kernel-kernel-plain); then K1's float64 instantiation against its
+   float64 twin (max abs error ≤ 1e-12) at 4096², d = 1 RBF (timed, bound
+   0.0401 ms), config 2's 2455² Matérn, a batch of 8 cross-grams 1024 ×
+   4096 and 1000 × 333, d = 3;
 4. holds kernel K2 (128-tile triangular inverse) and ``blocked_trtri`` built
    on it against the twin, in float64 (the factor path's dtype) and float32,
    at n ∈ {4096, 8192} and a batch of 8 at n = 1024, and times K2, the twin
@@ -47,7 +50,19 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    "RBF")`` fits NUTS (100 warmup + 100 draws, tree depth 7) on n = 4096
    points of sin(2x) + 0.1·noise, then ``predict_in_batches`` on 2048
    points, counting K1 and K2 launches in each phase;
-9. holds K1 and K2 against their twins at that path's own shapes and
+9. runs ``gpax_torch.parallel`` on that fit: ``sharded_predict`` and
+   ``sharded_acquisition(EI)`` on ``get_mesh()`` (the one card) equal to
+   ``predict`` and ``EI`` bit for bit, ``sharded_chol_inv`` (leaf 2048) on
+   the fit's gram against the composed factor (L within 1e-9 of max|L|,
+   ‖L·W − I‖ ≤ 1e-6), and the potential and gradient under
+   ``sharded_linalg`` within 1e-6 relative of the composed route's, with
+   K2 launched; then fits the same data under ``enable_x64()`` (float64
+   data and draws, the composed route, 100 + 100 at depth 7; only float64
+   K1 launches in the fit, and K2; the main path's limits, and means within
+   4 sd of the float32 composed fit's), predicts 2048 points in float64
+   and runs EI on it, and checks that a model built after
+   ``enable_x64(False)`` is float32;
+   it also holds K1 and K2 against their twins at that path's own shapes and
    inputs: the fit's 4096×4096 gram, and predict's grams (4096×4096,
    1024×4096, 1024×1024) and float64 factors for one chunk of posterior
    draws, the chunk sized as ``predict`` sizes it, timing K1 on the chunk's
@@ -168,7 +183,8 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     turns), checking each reward vector's shape and sign, K1/K2 launches
     on the GP-wrapped rounds, that both hypotheses were fitted and that the
     quadratic's mean reward beats the linear's;
-24. prints a JSON line of the kernels K1-K5 (time, twin time, library time,
+24. prints a JSON line of the kernels K1-K5 and K1's float64 instantiation
+    ("gram_f64") (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -212,6 +228,7 @@ MAX_DEPTH = 7
 PREDICT_M = 2048
 PREDICT_BATCH = 1024
 K1_TOL = 1e-5        # K1 vs twin, relative to max|K| (see check_k1)
+K1_F64_TOL = 1e-12   # K1's float64 instantiation vs its twin, max abs (see check_k1_f64)
 K1_MAX_BATCH_CASE = gram._MAX_BATCH + 4465  # a batch of 1×1 grams over two launches
 # K2 vs twin, relative to max|W|, and ‖W·L − I‖_max of blocked_trtri, on
 # well-conditioned factors (see check_k2)
@@ -243,6 +260,12 @@ PANEL_NAN_PIVOTS = (0, 15, 16, 31, 32, 127)
 # likelihood+grad sizes of the fused/composed crossover
 FUSED_NS = (512, 1024, 2048, 4096, 8192)
 FUSED_SD = 4.0  # the fused fit's posterior means within this many posterior sd
+# parallel/ on the card: the split factorization's leaf, and its L against
+# the composed factor (relative to max|L|) and ‖L·W − I‖_max, where κ(L) ~
+# 1e3 puts float64 rounding near 1e-9; its potential and gradient against
+# the composed route's, both float64 factors of the same float32 gram
+PAR_LEAF = 2048
+PAR_L_TOL, PAR_RESID_TOL, PAR_POT_RTOL = 1e-9, 1e-6, 1e-6
 
 # BASELINE config 3 (bench.py:433-468) and its wider inducing set
 SPARSE_RATIO = 0.05
@@ -407,12 +430,15 @@ def chol_inv_bound(B: int, m: int, dtype) -> dict:
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
-    gram.launches = chol.launches = chol.chol_inv_launches = 0
+    gram.launches = gram.launches_f64 = chol.launches = chol.chol_inv_launches = 0
     panel_chol.cholesky_launches = panel_chol.tri_inv_launches = 0
 
 
 def counts() -> dict:
-    return {"gram": gram.launches, "trtri": chol.launches, "cholinv": chol.chol_inv_launches,
+    """Launches since the last reset: K1's float32 ("gram") and float64
+    ("gram_f64") instantiations apart, K2-K5."""
+    return {"gram": gram.launches - gram.launches_f64, "gram_f64": gram.launches_f64,
+            "trtri": chol.launches, "cholinv": chol.chol_inv_launches,
             "panel_chol": panel_chol.cholesky_launches,
             "panel_tri_inv": panel_chol.tri_inv_launches}
 
@@ -508,11 +534,56 @@ def check_k1(dev) -> dict:
             "config2_ms": ms_c2, "config2_plain_ms": plain_c2, "config2_bound_ms": bc["bound_ms"]}
 
 
-def k1_bound(B: int, n: int, m: int, d: int) -> dict:
+def k1_bound(B: int, n: int, m: int, d: int, dtype=torch.float32) -> dict:
     """K1's least time: read Xs, Zs and the noise once, write the gram; per
     element 2d + 4 flops (cross term, r², scale) and one exp. No one PyTorch
-    call computes it."""
-    return bound(4 * B * (n * d + m * d + n + n * m), B * n * m * (2 * d + 4))
+    call computes it. In float64 the bytes double; the flops, on the
+    float64 units, stay far below the bytes' time."""
+    return bound(dtype.itemsize * B * (n * d + m * d + n + n * m), B * n * m * (2 * d + 4),
+                 dtype)
+
+
+def check_k1_f64(dev) -> dict:
+    """K1's float64 instantiation against its float64 twin: n = m = 4096,
+    d = 1, RBF (timed, with its bound), config 2's 2455² d = 2 Matérn, a
+    batch of 8 cross-grams 1024 × 4096 (predict's k_pX), and a shape off
+    every tile (1000 × 333, d = 3, Matérn). Max abs error ≤ K1_F64_TOL:
+    float64 r² from norms of at most ~230 here rounds at ~1e-13."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    f64 = {"device": dev, "dtype": torch.float64}
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, **f64)
+
+    X = rand(1, N_MAIN, 1) * 4.0 - 2.0
+    nz = torch.full((1, N_MAIN), 0.1, **f64)
+    Xc = rand(1, VIGP_N, 2) * VIGP_SIZE / 12.0
+    Xb, Zb = rand(8, PREDICT_BATCH, 1) * 4.0 - 2.0, rand(8, N_MAIN, 1) * 4.0 - 2.0
+    Xr, Zr = rand(1, 1000, 3) * 2.0, rand(1, 333, 3) * 2.0
+    cases = [(f"rbf d=1 B=1 {N_MAIN}x{N_MAIN} noise=scalar", X, X, nz, True, "rbf"),
+             (f"matern52 d=2 B=1 {VIGP_N}x{VIGP_N} noise=scalar", Xc, Xc,
+              torch.full((1, VIGP_N), 0.01, **f64), True, "matern52"),
+             (f"rbf d=1 B=8 {PREDICT_BATCH}x{N_MAIN} noise=none", Xb, Zb,
+              torch.zeros((8, PREDICT_BATCH), **f64), False, "rbf"),
+             ("matern52 d=3 B=1 1000x333 noise=none", Xr, Zr, torch.zeros((1, 1000), **f64),
+              False, "matern52")]
+    worst = 0.0
+    for label, Xs, Zs, nzs, same, kind in cases:
+        before = gram.launches_f64
+        out = gram.gram_unscaled(Xs, Zs, nzs, kind, same)
+        if gram.launches_f64 != before + 1 or out.dtype != torch.float64:
+            fail(f"K1 float64 at {label}: no float64 launch or a {out.dtype} result")
+        err = (out - gram.gram_twin(Xs, Zs, nzs, kind, same)).abs().max().item()
+        print(f"K1 float64 {label} max|err|={err:.3e} (tol {K1_F64_TOL:.0e})", flush=True)
+        if not err <= K1_F64_TOL:
+            fail(f"K1 float64 disagrees with its twin at {label}: {err}")
+        worst = max(worst, err)
+    ms, plain = paired_ms(lambda: gram.gram_unscaled(X, X, nz, "rbf", True),
+                          lambda: gram.gram_twin(X, X, nz, "rbf", True), 200)
+    b = k1_bound(1, N_MAIN, N_MAIN, 1, torch.float64)
+    print(f"K1 float64 time n=m={N_MAIN} d=1 rbf: kernel {ms:.4f} ms, twin {plain:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": None, **b}
 
 
 def k1_compare(label: str, Xs, Zs, nz, same: bool, kind: str = "rbf") -> float:
@@ -1493,16 +1564,171 @@ def slice6_paths() -> dict:
     return paths
 
 
-def check_fused_posterior(composed: dict, fused: dict) -> None:
-    """The fused fit's posterior means within FUSED_SD posterior sd of the
-    composed fit's (``tests/test_fused_density.py:105-108``)."""
+def check_fused_posterior(composed: dict, fused: dict, label: str = "fused",
+                          offsets: dict = {}) -> None:
+    """The fused (or another) fit's posterior means within FUSED_SD
+    posterior sd of the composed fit's (``tests/test_fused_density.py:105-108``),
+    the composed fit's mean of a site shifted by ``offsets[site]``."""
     for site in ("k_length", "k_scale", "noise"):
         mf, mc = fused[site].float().mean().item(), composed[site].float().mean().item()
+        mc += offsets.get(site, 0.0)
         sc = composed[site].float().std().item() + 1e-6
-        print(f"fused vs composed posterior {site}: mean {mf:.5f} vs {mc:.5f}, "
+        print(f"{label} vs composed posterior {site}: mean {mf:.5f} vs {mc:.5f}, "
               f"|diff|/sd {abs(mf - mc) / sc:.3f} (tol {FUSED_SD})", flush=True)
         if not abs(mf - mc) < FUSED_SD * sc:
-            fail(f"the fused fit's posterior mean of {site} is off the composed fit's")
+            fail(f"the {label} fit's posterior mean of {site} is off the composed fit's")
+
+
+def x64_path(dev, composed: dict) -> dict:
+    """The main path's fit under ``enable_x64()``: a float64 ExactGP on
+    config 1's data (the composed route, since the fused one takes float32
+    only), 100 + 100 draws at depth 7, float64 K1 and K2 launched and no
+    float32 K1 during the fit; accept, divergences, RMSE and posterior means
+    within FUSED_SD sd of the float32 composed fit's (the noise as noise plus
+    each dtype's base regularization); then a float64 predict
+    on 2048 points and EI on the fit. ``enable_x64(False)`` after, and a new
+    model is float32 again."""
+    X_np, y_np = bench_data(N_MAIN)
+    k_fit, k_pred = get_keys(0)
+    gpax_torch.enable_x64()
+    try:
+        gp = gpax_torch.ExactGP(1, "RBF")
+        X, y = gp._set_data(X_np, y_np, device=dev)
+        if not (gp.dtype == X.dtype == torch.float64):
+            fail(f"x64: the model's dtype {gp.dtype}, the data's {X.dtype}")
+        reset_counts()
+        t0 = time.perf_counter()
+        gp.fit(k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES,
+               max_tree_depth=MAX_DEPTH, print_summary=False, progress_bar=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launch = counts()
+        samples = gp.get_samples()
+        stats = gp.mcmc.get_extra_fields()
+        accept = stats["accept_prob"].mean().item()
+        divergences = int(stats["diverging"].sum())
+        X_new = torch.linspace(-2, 2, PREDICT_M, device=dev, dtype=torch.float64)[:, None]
+        reset_counts()
+        t0 = time.perf_counter()
+        mean, draws = gp.predict_in_batches(k_pred, X_new, batch_size=PREDICT_BATCH,
+                                            noiseless=True)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        pred_launch = counts()
+        ei, ei_s, ei_launch = timed(lambda: acq.EI(11, gp, X_new))
+    finally:
+        gpax_torch.enable_x64(False)
+    rmse = float(np.sqrt(np.mean((mean.numpy() - np.sin(2 * X_new[:, 0].cpu().numpy())) ** 2)))
+    summary = {"fit_s": fit_s, "leapfrogs": gp.mcmc.num_leapfrogs,
+               "ms_per_leapfrog": 1e3 * fit_s / max(gp.mcmc.num_leapfrogs, 1),
+               "accept_mean": accept, "divergences": divergences, "predict_s": pred_s,
+               "ei_s": ei_s, "posterior_rmse": rmse,
+               "posterior_mean": {k: v.mean().item() for k, v in samples.items()},
+               "launches_fit": fit_launch, "launches_predict": pred_launch,
+               "launches_ei": ei_launch}
+    print(f"ExactGP x64 fit n={N_MAIN}: " + json.dumps(summary), flush=True)
+    if not all(v.dtype == torch.float64 and bool(torch.isfinite(v).all())
+               for v in samples.values()):
+        fail("x64: the samples are not finite float64")
+    if fit_launch["gram"] != 0 or fit_launch["gram_f64"] <= 0 or fit_launch["trtri"] <= 0:
+        fail(f"x64: the fit's launches {fit_launch}: float64 K1 and K2 only")
+    if not 0.5 <= accept <= 0.99:
+        fail(f"x64: mean accept {accept} outside [0.5, 0.99]")
+    if divergences > 0.05 * NUM_SAMPLES:
+        fail(f"x64: {divergences} divergences in {NUM_SAMPLES} draws")
+    if not rmse <= 0.03:
+        fail(f"x64: posterior RMSE {rmse} > 0.03")
+    for name, t in (("predict mean", mean), ("predict draws", draws), ("EI", ei)):
+        if not (t.dtype == torch.float64 and bool(torch.isfinite(t).all())):
+            fail(f"x64: {name} is not finite float64")
+    if not (mean.shape == (PREDICT_M,) and ei.shape == (PREDICT_M,)):
+        fail(f"x64: predict {tuple(mean.shape)} or EI {tuple(ei.shape)}")
+    # both fits put noise + 4·n·eps of their dtype on K's diagonal (the
+    # factor path's base regularization, ops/linalg.py): float32's 0.00195
+    # at n = 4096 is float64's noise posterior more, so the noise site is
+    # compared as that sum
+    base = 4.0 * N_MAIN
+    check_fused_posterior(composed, samples, "x64", {"noise": base * (
+        torch.finfo(torch.float32).eps - torch.finfo(torch.float64).eps)})
+    if gpax_torch.ExactGP(1).dtype != torch.float32 or torch.get_default_dtype() != torch.float32:
+        fail("x64: a model built after enable_x64(False) is not float32")
+    launched = {"fit": fit_launch, "predict": pred_launch, "EI": ei_launch}
+    require_launches("ExactGP x64", launched, ("gram_f64", "trtri"))
+    return launched
+
+
+def parallel_path(gp) -> dict:
+    """``gpax_torch.parallel`` on the card, on the float32 composed n = 4096
+    fit: ``sharded_predict`` and ``sharded_acquisition(EI)`` on
+    ``get_mesh()`` bit for bit against ``predict`` and ``EI`` with the same
+    key; ``sharded_chol_inv`` (leaf 2048) against the composed factor of the
+    fit's gram; the potential and gradient under ``sharded_linalg`` within
+    PAR_POT_RTOL of the composed route's, with K2 launched."""
+    dev = gp.X_train.device
+    mesh = gpax_torch.parallel.get_mesh()
+    X_new = torch.linspace(-2, 2, PREDICT_M, device=dev)[:, None]
+    launched = {}
+
+    def fresh(fn):
+        # the chunks of draws are sized from the card's free memory: the same
+        # free memory for each call, so the same chunks
+        torch.cuda.empty_cache()
+        return fn()
+
+    (mean_s, draws_s), secs, launched["sharded_predict"] = timed(lambda: fresh(
+        lambda: gpax_torch.parallel.sharded_predict(gp, 5, X_new, mesh=mesh, noiseless=True)))
+    mean_l, draws_l = fresh(lambda: gp.predict(5, X_new, noiseless=True))
+    ei_s, ei_secs, launched["sharded_acquisition"] = timed(lambda: fresh(
+        lambda: gpax_torch.parallel.sharded_acquisition(acq.EI, 11, gp, X_new, mesh=mesh)))
+    ei_l = fresh(lambda: acq.EI(11, gp, X_new))
+    print(f"parallel on {mesh}: sharded_predict {secs:.2f} s, sharded_acquisition(EI) "
+          f"{ei_secs:.2f} s; equal to predict/EI: {torch.equal(mean_s, mean_l)}, "
+          f"{torch.equal(draws_s, draws_l)}, {torch.equal(ei_s, ei_l)}", flush=True)
+    if not (torch.equal(mean_s, mean_l) and torch.equal(draws_s, draws_l)
+            and torch.equal(ei_s, ei_l)):
+        fail("parallel: sharded_predict/sharded_acquisition differ from predict/EI")
+
+    # the fit's gram for its first draw with the factor path's base jitter,
+    # as panel_path takes it; the composed factor is chol_tri_factors'
+    s = {k: v[:1] for k, v in gp.get_samples().items()}
+    n = gp.X_train.shape[0]
+    K = gp.kernel(gp.X_train, gp.X_train, s, s["noise"])[0]
+    K64 = K.double()
+    K64.diagonal().add_(4.0 * n * torch.finfo(torch.float32).eps)
+    reset_counts()
+    L, W = gpax_torch.parallel.sharded_chol_inv(K64, mesh, leaf=PAR_LEAF)
+    torch.cuda.synchronize()
+    launched["sharded_chol_inv"] = counts()
+    L_c, W_c = linalg.chol_tri_factors(K64)
+    err_l = ((L - L_c).abs().max() / L_c.abs().max()).item()
+    resid = (L @ W - torch.eye(n, device=dev, dtype=torch.float64)).abs().max().item()
+    print(f"sharded_chol_inv n={n} leaf={PAR_LEAF}: L vs composed rel {err_l:.3e} (tol "
+          f"{PAR_L_TOL:.0e}), |L·W − I|_max {resid:.3e} (tol {PAR_RESID_TOL:.0e})", flush=True)
+    if not (err_l <= PAR_L_TOL and resid <= PAR_RESID_TOL):
+        fail("parallel: sharded_chol_inv disagrees with the composed factor")
+    del K, K64, L, W, L_c, W_c
+
+    X, y = gp.X_train, gp.y_train
+    with route("never"):
+        u_c, g_c = potential_and_grad(gp, X, y, dev)[:2]
+    reset_counts()
+    with gpax_torch.parallel.sharded_linalg(mesh, leaf=PAR_LEAF):
+        u_s, g_s = potential_and_grad(gp, X, y, dev)[:2]
+    torch.cuda.synchronize()
+    launched["sharded_linalg potential"] = counts()
+    rel_u = abs(u_s - u_c) / abs(u_c)
+    rel_g = ((g_s - g_c).abs().max() / g_c.abs().max()).item()
+    print(f"sharded_linalg potential n={n}: {u_s:.8f} vs composed {u_c:.8f}, rel {rel_u:.2e}; "
+          f"grad rel {rel_g:.2e} (tol {PAR_POT_RTOL:.0e})", flush=True)
+    if not (rel_u <= PAR_POT_RTOL and rel_g <= PAR_POT_RTOL):
+        fail("parallel: the sharded_linalg potential disagrees with the composed route's")
+    require_launches("parallel", {k: launched[k] for k in ("sharded_predict",
+                                                            "sharded_acquisition")},
+                     ("gram", "trtri"))
+    require_launches("parallel", {k: launched[k] for k in ("sharded_chol_inv",
+                                                            "sharded_linalg potential")},
+                     ("trtri",))
+    return launched
 
 
 def sparse_data(n: int):
@@ -2459,6 +2685,7 @@ def main() -> None:
         build_phase()
     with phase("K1-K5 against their twins"):
         k1 = check_k1(dev)
+        k1_f64 = check_k1_f64(dev)
         k2 = check_k2(dev)
         k3 = check_k3(dev)
         k45_err = check_panel(dev)
@@ -2474,8 +2701,13 @@ def main() -> None:
         paths["ExactGP BO"] = bo_path(gp)
     with phase("K4/K5 on the fit's gram"):
         paths["ExactGP panel factors"], panel_err, k45 = panel_path(gp)
+    with phase("parallel on the composed fit"):
+        paths["parallel"] = parallel_path(gp)
     composed = gp.get_samples()
     del gp
+    torch.cuda.empty_cache()
+    with phase("ExactGP x64 fit and predict"):
+        paths["ExactGP x64"] = x64_path(dev, composed)
     torch.cuda.empty_cache()
     with phase("ExactGP fused fit and predict"):
         paths["ExactGP fused"], gp, _, fused_summary = main_path(dev, "always")
@@ -2546,6 +2778,8 @@ def main() -> None:
     kernels = [
         {"name": "gram", "route": "cuda", "source": "gpax_torch/csrc/gram.cu",
          "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram"), **k1},
+        {"name": "gram_f64", "route": "cuda", "source": "gpax_torch/csrc/gram.cu",
+         "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram_f64"), **k1_f64},
         {"name": "tile_tri_inv", "route": "cuda", "source": "gpax_torch/csrc/trtri.cu",
          "replaces": "gpax_tpu/ops/chol.py:221", **launches("trtri"), **k2},
         {"name": "tile_chol_inv", "route": "cuda", "source": "gpax_torch/csrc/cholinv.cu",

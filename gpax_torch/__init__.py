@@ -17,13 +17,16 @@ triangular tile inverse (K2) and the tile Cholesky and inverse (K3, both
 ``ops/chol.py``), launch on CUDA tensors; on CPU tensors their plain
 PyTorch twins run instead. The models' entry points run on the CUDA card
 unless the caller passes ``device="cpu"``. Importing the package pins fp32
-matmuls to full precision (``config.py``).
+matmuls to full precision (``config.py``); ``enable_x64()`` makes float64
+the default, as in the JAX package, and the card then runs K1's float64
+instantiation. ``parallel`` splits prediction and acquisition grids and the
+large-n factorization over a mesh of devices.
 """
 
 from . import config  # noqa: F401  (first: pins fp32 matmul precision)
 from . import acquisition, distributions, infer, kernels, nn, ops, ppl, priors, utils
 from . import hypo
-from .config import get_config, set_config
+from .config import enable_x64, get_config, set_config
 from .hypo import sample_next
 from .models import (
     BNN,
@@ -60,6 +63,7 @@ __all__ = [
     "priors",
     "utils",
     "hypo",
+    "enable_x64",
     "get_config",
     "set_config",
     "ExactGP",

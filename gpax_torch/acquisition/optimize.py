@@ -13,7 +13,8 @@ from ..utils.utils import resolve_device
 
 
 def ensure_array(x) -> torch.Tensor:
-    """A float32 tensor of a tensor, list, tuple, number or numpy array (a
+    """A tensor of the default dtype (float32, or float64 after
+    ``enable_x64``) of a tensor, list, tuple, number or numpy array (a
     number becomes a 1-vector)."""
     if not torch.is_tensor(x):
         if isinstance(x, (float, int)):
@@ -22,7 +23,7 @@ def ensure_array(x) -> torch.Tensor:
             x = torch.as_tensor(np.asarray(x))
         else:
             raise TypeError(f"Expected a list, tuple, float, or array; got {type(x)}")
-    return x.to(torch.float32)
+    return x.to(torch.get_default_dtype())
 
 
 def optimize_acq(rng_key, model, acq_fn: Callable, num_initial_guesses: int,
@@ -59,14 +60,14 @@ def optimize_acq(rng_key, model, acq_fn: Callable, num_initial_guesses: int,
         from scipy.optimize import minimize
 
         def fun(x):
-            xt = torch.tensor(x, dtype=torch.float32, device=dev, requires_grad=True)
+            xt = torch.tensor(x, dtype=lower_bound.dtype, device=dev, requires_grad=True)
             v = neg_acq(xt)
             (g,) = torch.autograd.grad(v, xt)
             return float(v.detach()), g.double().cpu().numpy()
 
         res = minimize(fun, best.double().cpu().numpy(), jac=True, method="L-BFGS-B",
                        bounds=list(zip(lower_bound.tolist(), upper_bound.tolist())))
-        return torch.as_tensor(res.x, dtype=torch.float32, device=dev)
+        return torch.as_tensor(res.x, dtype=lower_bound.dtype, device=dev)
 
     x = best.clone().requires_grad_(True)
     # one iteration a step, so the box projection follows each; max_eval

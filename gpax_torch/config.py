@@ -16,6 +16,14 @@ by device, not by a switch.
 ``use_fused_likelihood`` chooses a route, not a kernel: ExactGP's fused
 likelihood (``ops/fused_density.py``) and its composed one both launch K1
 and K2 on a CUDA tensor and take their twins on a CPU tensor.
+
+``enable_x64`` is the JAX package's (and the reference gpax's) double
+precision mode, with one source of truth as ``jax_enable_x64`` has: torch's
+default dtype. It turns float64 every tensor the port makes without a
+dtype of its own (the models' data, priors, samples, guides) and every
+tensor user code builds from Python floats. The card then runs K1's float64
+instantiation and the float64 factor path; a model keeps the dtype it was
+built with.
 """
 
 from __future__ import annotations
@@ -73,6 +81,24 @@ def pin_fp32_matmul() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+def enable_x64(use_x64: bool = True) -> None:
+    """Double precision by default (``gpax.utils.enable_x64``): torch's
+    default dtype becomes float64, or float32 again with ``False``. The
+    fp32 matmul pins stay as they are."""
+    torch.set_default_dtype(torch.float64 if use_x64 else torch.float32)
+    pin_fp32_matmul()
+
+
+def is_x64() -> bool:
+    return torch.get_default_dtype() == torch.float64
+
+
+def resolve_dtype(dtype=None) -> torch.dtype:
+    """``dtype``, or the mode's default (float64 after ``enable_x64``, else
+    float32) when it is None."""
+    return torch.get_default_dtype() if dtype is None else dtype
 
 
 def get_config() -> Config:

@@ -39,6 +39,14 @@
 // the JAX package, with no TF32 or bf16 anywhere. The noise add stays fused
 // on the global diagonal.
 //
+// The float64 instantiation (gpax_gram_f64, the port's x64 mode) is the
+// same kernel on doubles: exp/sqrt/fmax, double FMAs, 4 columns a lane
+// stored as two 16-byte double2 stores. Its staging takes chunks of 16
+// features (25.5 KB of shared memory, under the 48 KB of static shared
+// memory a block may have; 32 would need 49.5 KB), and it is launched at 2
+// blocks an SM (128 registers a thread) for the doubled cross terms. At
+// d = 1 its bound is the n*m*8-byte store: 134 MB, 40 us, at n = m = 4096.
+//
 // Build without --use_fast_math: expf and sqrtf must be the accurate ones.
 
 #include <cstdint>
@@ -53,26 +61,57 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kRows / kWarps;  // 8: each lane's rows
 constexpr int kPass = kRowsPerWarp / 2;       // rows a lane computes at once
-constexpr int kDC = 32;                       // features staged per chunk
-constexpr int kBlocksPerSM = 3;               // the launch bound and the grid's cap
-constexpr float kSqrt5 = 2.2360679774997896f;
 
-template <int KIND>
-__device__ __forceinline__ float map_r2(float r2) {
-  if (KIND == 0) return expf(-0.5f * r2);
-  const float s5r = kSqrt5 * sqrtf(fmaxf(r2, 1e-10f));
-  return (1.0f + s5r + (5.0f / 3.0f) * r2) * expf(-s5r);
+// per scalar type: features staged per chunk, and blocks an SM (the launch
+// bound and the grid's cap)
+template <typename T> struct Cfg;
+template <> struct Cfg<float> { static constexpr int kDC = 32, kBlocksPerSM = 3; };
+template <> struct Cfg<double> { static constexpr int kDC = 16, kBlocksPerSM = 2; };
+
+__device__ __forceinline__ float exp_(float x) { return expf(x); }
+__device__ __forceinline__ double exp_(double x) { return exp(x); }
+__device__ __forceinline__ float sqrt_(float x) { return sqrtf(x); }
+__device__ __forceinline__ double sqrt_(double x) { return sqrt(x); }
+__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
+
+// 4 consecutive values, 16-byte aligned: one float4, or two double2
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+__device__ __forceinline__ void load4(const double* p, double v[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double v[4]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
 }
 
-template <int KIND>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-gram_kernel(const float* __restrict__ X, const float* __restrict__ Z,
-            const float* __restrict__ noise, float* __restrict__ out,
+template <int KIND, typename T>
+__device__ __forceinline__ T map_r2(T r2) {
+  if (KIND == 0) return exp_(T(-0.5) * r2);
+  const T s5r = T(2.2360679774997896) * sqrt_(max_(r2, T(1e-10)));
+  return (T(1) + s5r + (T(5) / T(3)) * r2) * exp_(-s5r);
+}
+
+template <int KIND, typename T>
+__global__ void __launch_bounds__(kThreads, Cfg<T>::kBlocksPerSM)
+gram_kernel(const T* __restrict__ X, const T* __restrict__ Z,
+            const T* __restrict__ noise, T* __restrict__ out,
             int batch, int n, int m, int d, int add_noise) {
-  __shared__ __align__(16) float xs[kDC][kRows];   // feature-major
-  __shared__ __align__(16) float zs[kDC][kCols];
-  __shared__ __align__(16) float x2s[kRows];
-  __shared__ __align__(16) float z2s[kCols];
+  constexpr int kDC = Cfg<T>::kDC;
+  __shared__ __align__(16) T xs[kDC][kRows];   // feature-major
+  __shared__ __align__(16) T zs[kDC][kCols];
+  __shared__ __align__(16) T x2s[kRows];
+  __shared__ __align__(16) T z2s[kCols];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int row_tiles = (n + kRows - 1) / kRows, col_tiles = (m + kCols - 1) / kCols;
@@ -84,8 +123,8 @@ gram_kernel(const float* __restrict__ X, const float* __restrict__ Z,
     const int b = (int)(t / ((long long)row_tiles * col_tiles));
     const int rc = (int)(t % ((long long)row_tiles * col_tiles));
     const int row0 = (rc / col_tiles) * kRows, col0 = (rc % col_tiles) * kCols;
-    const float* Xb = X + (size_t)b * n * d;
-    const float* Zb = Z + (size_t)b * m * d;
+    const T* Xb = X + (size_t)b * n * d;
+    const T* Zb = Z + (size_t)b * m * d;
     const int col = col0 + 4 * lane;
 
     // the lane's 8 rows in two passes of 4, which halves the cross terms
@@ -93,43 +132,40 @@ gram_kernel(const float* __restrict__ X, const float* __restrict__ Z,
     // chunk, and again for the second pass when they do not
 #pragma unroll 1
     for (int h = 0; h < 2; ++h) {
-      float cross[kPass][4];
+      T cross[kPass][4];
 #pragma unroll
       for (int i = 0; i < kPass; ++i)
 #pragma unroll
-        for (int v = 0; v < 4; ++v) cross[i][v] = 0.f;
-      float norm = 0.f;  // thread tid < 64: row tid's; 64 <= tid < 192: column tid - 64's
+        for (int v = 0; v < 4; ++v) cross[i][v] = T(0);
+      T norm = T(0);  // thread tid < 64: row tid's; 64 <= tid < 192: column tid - 64's
       for (int ch = 0; ch < chunks; ++ch) {
         const int k0 = ch * kDC, kc = max(0, min(kDC, d - k0));
         if (h == 0 || chunks > 1) {
           for (int e = tid; e < kRows * kc; e += kThreads) {
             const int c = e / kRows, r = e % kRows, gr = row0 + r;
-            xs[c][r] = gr < n ? Xb[(size_t)gr * d + k0 + c] : 0.f;
+            xs[c][r] = gr < n ? Xb[(size_t)gr * d + k0 + c] : T(0);
           }
           for (int e = tid; e < kCols * kc; e += kThreads) {
             const int c = e / kCols, r = e % kCols, gc = col0 + r;
-            zs[c][r] = gc < m ? Zb[(size_t)gc * d + k0 + c] : 0.f;
+            zs[c][r] = gc < m ? Zb[(size_t)gc * d + k0 + c] : T(0);
           }
           __syncthreads();
         }
         if (h == 0) {
           if (tid < kRows) {
-            for (int c = 0; c < kc; ++c) norm = fmaf(xs[c][tid], xs[c][tid], norm);
+            for (int c = 0; c < kc; ++c) norm = fma_(xs[c][tid], xs[c][tid], norm);
           } else if (tid < kRows + kCols) {
-            for (int c = 0; c < kc; ++c) norm = fmaf(zs[c][tid - kRows], zs[c][tid - kRows], norm);
+            for (int c = 0; c < kc; ++c) norm = fma_(zs[c][tid - kRows], zs[c][tid - kRows], norm);
           }
         }
         for (int c = 0; c < kc; ++c) {
-          const float4 z = *reinterpret_cast<const float4*>(&zs[c][4 * lane]);
-          const float4 x = *reinterpret_cast<const float4*>(&xs[c][kRowsPerWarp * warp + kPass * h]);
-          const float xv[kPass] = {x.x, x.y, x.z, x.w};
+          T z[4], xv[kPass];
+          load4(&zs[c][4 * lane], z);
+          load4(&xs[c][kRowsPerWarp * warp + kPass * h], xv);
 #pragma unroll
-          for (int i = 0; i < kPass; ++i) {
-            cross[i][0] = fmaf(xv[i], z.x, cross[i][0]);
-            cross[i][1] = fmaf(xv[i], z.y, cross[i][1]);
-            cross[i][2] = fmaf(xv[i], z.z, cross[i][2]);
-            cross[i][3] = fmaf(xv[i], z.w, cross[i][3]);
-          }
+          for (int i = 0; i < kPass; ++i)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) cross[i][v] = fma_(xv[i], z[v], cross[i][v]);
         }
         if (chunks > 1) __syncthreads();  // before the next chunk is staged
       }
@@ -139,22 +175,22 @@ gram_kernel(const float* __restrict__ X, const float* __restrict__ Z,
         __syncthreads();
       }
       if (col >= m) continue;
-      const float4 z2 = *reinterpret_cast<const float4*>(&z2s[4 * lane]);
-      const float z2v[4] = {z2.x, z2.y, z2.z, z2.w};
+      T z2v[4];
+      load4(&z2s[4 * lane], z2v);
 #pragma unroll
       for (int i = 0; i < kPass; ++i) {
         const int r = kRowsPerWarp * warp + kPass * h + i, row = row0 + r;
         if (row >= n) break;
-        const float x2 = x2s[r];
-        float k[4];
+        const T x2 = x2s[r];
+        T k[4];
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          k[v] = map_r2<KIND>(fmaxf(x2 - 2.0f * cross[i][v] + z2v[v], 0.0f));
+          k[v] = map_r2<KIND>(max_(x2 - T(2) * cross[i][v] + z2v[v], T(0)));
           if (add_noise && row == col + v) k[v] += noise[(size_t)b * n + row];
         }
-        float* o = out + ((size_t)b * n + row) * m + col;
+        T* o = out + ((size_t)b * n + row) * m + col;
         if (col + 4 <= m && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
-          *reinterpret_cast<float4*>(o) = make_float4(k[0], k[1], k[2], k[3]);
+          store4(o, k);
         } else {
 #pragma unroll
           for (int v = 0; v < 4; ++v)
@@ -166,15 +202,9 @@ gram_kernel(const float* __restrict__ X, const float* __restrict__ Z,
   }
 }
 
-}  // namespace
-
-// kind: 0 = RBF, 1 = Matern-5/2. All pointers are device pointers to
-// contiguous float32: X (batch, n, d), Z (batch, m, d), noise (batch, n),
-// out (batch, n, m). Returns the first CUDA error of the device query or
-// cudaGetLastError() after the launch.
-extern "C" int gpax_gram_f32(const float* X, const float* Z, const float* noise,
-                             float* out, int batch, int n, int m, int d,
-                             int kind, int add_noise, cudaStream_t stream) {
+template <typename T>
+int launch_gram(const T* X, const T* Z, const T* noise, T* out, int batch, int n, int m,
+                int d, int kind, int add_noise, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -183,12 +213,31 @@ extern "C" int gpax_gram_f32(const float* X, const float* Z, const float* noise,
       (long long)batch * ((n + kRows - 1) / kRows) * ((m + kCols - 1) / kCols);
   // up to 4 waves of resident blocks, so the scheduler balances the last
   // one; a larger grid loops
-  const long long cap = 4LL * sms * kBlocksPerSM;
+  const long long cap = 4LL * sms * Cfg<T>::kBlocksPerSM;
   const int blocks = (int)(tiles < cap ? tiles : cap);
   if (kind == 0) {
-    gram_kernel<0><<<blocks, kThreads, 0, stream>>>(X, Z, noise, out, batch, n, m, d, add_noise);
+    gram_kernel<0, T><<<blocks, kThreads, 0, stream>>>(X, Z, noise, out, batch, n, m, d, add_noise);
   } else {
-    gram_kernel<1><<<blocks, kThreads, 0, stream>>>(X, Z, noise, out, batch, n, m, d, add_noise);
+    gram_kernel<1, T><<<blocks, kThreads, 0, stream>>>(X, Z, noise, out, batch, n, m, d, add_noise);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// kind: 0 = RBF, 1 = Matern-5/2. All pointers are device pointers to
+// contiguous float32 (gpax_gram_f32) or float64 (gpax_gram_f64): X (batch,
+// n, d), Z (batch, m, d), noise (batch, n), out (batch, n, m). Returns the
+// first CUDA error of the device query or cudaGetLastError() after the
+// launch.
+extern "C" int gpax_gram_f32(const float* X, const float* Z, const float* noise,
+                             float* out, int batch, int n, int m, int d,
+                             int kind, int add_noise, cudaStream_t stream) {
+  return launch_gram<float>(X, Z, noise, out, batch, n, m, d, kind, add_noise, stream);
+}
+
+extern "C" int gpax_gram_f64(const double* X, const double* Z, const double* noise,
+                             double* out, int batch, int n, int m, int d,
+                             int kind, int add_noise, cudaStream_t stream) {
+  return launch_gram<double>(X, Z, noise, out, batch, n, m, d, kind, add_noise, stream);
 }

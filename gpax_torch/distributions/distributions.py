@@ -27,7 +27,7 @@ def _bshape(*shapes) -> Tuple[int, ...]:
 
 
 def _as(x) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=x.dtype if torch.is_tensor(x) else torch.float32)
+    return torch.as_tensor(x, dtype=x.dtype if torch.is_tensor(x) else torch.get_default_dtype())
 
 
 def _randn(key: torch.Generator, shape, like: torch.Tensor) -> torch.Tensor:
@@ -331,7 +331,9 @@ class MultivariateNormal(Distribution):
     ``log_prob`` given a covariance, 2-D or batched (…, n, n), routes to
     ``ops.linalg.mvn_log_prob_centered`` (one float64 factorization of the
     whole batch, K2's blocked inverse, closed-form backward) and returns one
-    value per matrix; given ``scale_tril`` it solves with the factor.
+    value per matrix; inside ``parallel.sharded_linalg`` one matrix and one
+    vector take the mesh-split factorization instead. Given ``scale_tril``
+    it solves with the factor.
     """
 
     support = constraints.real_vector
@@ -366,7 +368,16 @@ class MultivariateNormal(Distribution):
         diff = value - self.loc
         if self._covariance is not None:
             from ..ops.linalg import mvn_log_prob_centered
+            from ..parallel.distributed_chol import (
+                active_sharded_linalg, make_sharded_mvn_log_prob,
+            )
 
+            ctx = active_sharded_linalg()
+            if ctx is not None and self._covariance.ndim == 2 and diff.ndim == 1:
+                # model-parallel likelihood: factorization and backward split
+                # over the active mesh (parallel/distributed_chol.py)
+                mesh, axis_name, leaf = ctx
+                return make_sharded_mvn_log_prob(mesh, axis_name, leaf)(self._covariance, diff)
             return mvn_log_prob_centered(self._covariance, diff)
         L = self.scale_tril
         w = _batched_tri_solve(L, diff)

@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..config import resolve_dtype
 from ..utils.utils import host_bool
 
 
@@ -49,9 +50,11 @@ class WelfordState(NamedTuple):
     count: torch.Tensor          # (…)
 
 
-def welford_init(dim: int, dtype=torch.float32, dense: bool = False,
+def welford_init(dim: int, dtype=None, dense: bool = False,
                  device=None, batch_shape=()) -> WelfordState:
-    """Empty sums, one set per chain of ``batch_shape``."""
+    """Empty sums, one set per chain of ``batch_shape``, in ``dtype`` (None:
+    the default dtype)."""
+    dtype = resolve_dtype(dtype)
     batch_shape = tuple(batch_shape)
     m2_shape = batch_shape + ((dim, dim) if dense else (dim,))
     return WelfordState(torch.zeros(batch_shape + (dim,), dtype=dtype, device=device),

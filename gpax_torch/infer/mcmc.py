@@ -1,6 +1,7 @@
 """MCMC runner (counterpart of ``gpax_tpu/infer/mcmc.py``):
 ``MCMC(NUTS(model), num_warmup, num_samples).run(key, *args)`` then
-``get_samples()``, on the data's device.
+``get_samples()``, on the data's device; a model without tensor
+arguments runs on the constructor's ``device`` (None: the CUDA card).
 
 Several chains under ``chain_method="vectorized"`` run in lockstep
 (``nuts.run_nuts_segmented_chains``, ``gpax_tpu/infer/mcmc.py:243-307``):
@@ -33,16 +34,19 @@ import torch
 
 from ..ppl import initialize_model, make_potential_fn, seed, substitute
 from ..ppl import trace as ppl_trace
-from ..utils.utils import spawn
+from ..utils.utils import resolve_device, spawn
 from . import diagnostics
 from .nuts import _SEGMENT_STATS, NUTS, ravel, run_nuts_segmented, run_nuts_segmented_chains
 
 
-def _device_of(args, kwargs) -> torch.device:
+def _device_of(args, kwargs, device=None) -> torch.device:
+    """The device of the first tensor among the model's arguments; for a
+    model without tensor arguments, ``device`` (None: the CUDA card, see
+    ``utils.resolve_device``)."""
     for a in (*args, *kwargs.values()):
         if torch.is_tensor(a):
             return a.device
-    return torch.device("cpu")
+    return resolve_device(device)
 
 
 def _named(potential_fn, model, num_chains: int):
@@ -57,7 +61,7 @@ class MCMC:
     def __init__(self, kernel: NUTS, num_warmup: int = 2000, num_samples: int = 2000,
                  num_chains: int = 1, chain_method: str = "sequential",
                  progress_bar: bool = False, jit_model_args: bool = False,
-                 segment_size: Optional[int] = None):
+                 segment_size: Optional[int] = None, device=None):
         if chain_method not in ("sequential", "vectorized", "parallel"):
             raise ValueError(f"unknown chain_method {chain_method!r}")
         self.kernel = kernel
@@ -67,6 +71,7 @@ class MCMC:
         self.chain_method = chain_method
         self.progress_bar = progress_bar  # prints segments on a segmented run
         self.segment_size = segment_size
+        self.device = device  # of a run whose model takes no tensor argument
         self.segment_callback = None
         self.deadline = None
         self.warmup_depth_cap = None
@@ -94,7 +99,7 @@ class MCMC:
         if isinstance(rng_key, int):
             rng_key = torch.Generator().manual_seed(rng_key)
         model = self.kernel.model
-        device = _device_of(model_args, model_kwargs)
+        device = _device_of(model_args, model_kwargs, self.device)
 
         def sync():
             if device.type == "cuda":

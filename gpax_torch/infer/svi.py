@@ -34,7 +34,7 @@ from ..distributions.distributions import _randn
 from ..ppl import get_latent_structure, log_density, seed, trace
 from ..ppl.core import sum_batched
 from ..ppl.util import constrain, transform_log_det, unconstrain
-from ..utils.utils import spawn, tree_map
+from ..utils.utils import resolve_device, spawn, tree_map
 
 
 class AutoGuide:
@@ -229,21 +229,27 @@ class Trace_ELBO:
         self.num_particles = num_particles
 
 
-def _data_device(model_args, model_kwargs) -> torch.device:
+def _data_device(model_args, model_kwargs, device=None) -> torch.device:
+    """The device of the first tensor among the model's arguments; for a
+    model without tensor arguments, ``device`` (None: the CUDA card, see
+    ``utils.resolve_device``)."""
     for a in (*model_args, *model_kwargs.values()):
         if torch.is_tensor(a):
             return a.device
-    return torch.device("cpu")
+    return resolve_device(device)
 
 
 class SVI:
     """``SVI(model, guide, optim, loss)``; ``optim`` is an :class:`Adam`, a
     learning rate (Adam with the defaults) or a callable that builds a
-    ``torch.optim.Optimizer`` over a list of parameters."""
+    ``torch.optim.Optimizer`` over a list of parameters. ``device`` is where
+    a model without tensor arguments runs (None: the CUDA card)."""
 
     def __init__(self, model, guide: AutoGuide,
-                 optim: Union[Adam, float, Callable], loss: Optional[Trace_ELBO] = None):
+                 optim: Union[Adam, float, Callable], loss: Optional[Trace_ELBO] = None,
+                 device=None):
         self.model = model
+        self.device = device
         self.guide = guide
         if isinstance(optim, (int, float)):
             optim = Adam(optim)
@@ -266,14 +272,15 @@ class SVI:
     def run(self, rng_key: Union[torch.Generator, int, Sequence], num_steps: int,
             *model_args, progress_bar: bool = False, **model_kwargs) -> SVIRunResult:
         """``num_steps`` Adam steps on the negative ELBO, on the device of the
-        model's tensor arguments. ``rng_key`` is a CPU generator or a seed;
+        model's tensor arguments (the constructor's ``device`` for a model
+        without any). ``rng_key`` is a CPU generator or a seed;
         the guide's initial draw and the steps' draws come from generators
         spawned from it on that device. Returns the final parameters (guide
         and model params in one dict), the state and the per-step losses.
 
         A list of B keys fits B models at once (see the module docstring):
         the parameters lead with B, and the losses are (B, num_steps)."""
-        device = _data_device(model_args, model_kwargs)
+        device = _data_device(model_args, model_kwargs, self.device)
         batched = isinstance(rng_key, (list, tuple))
         keys = list(rng_key) if batched else [rng_key]
         k_init = [spawn(k, device) for k in keys]

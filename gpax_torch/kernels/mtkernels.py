@@ -33,6 +33,14 @@ from .kernels import get_kernel
 kernel_fn_type = Callable[..., torch.Tensor]
 
 
+def get_in_axes(data: Dict) -> tuple:
+    """``in_dims`` of ``torch.func.vmap`` over the LCM's latent axis
+    (``mtkernels.py:27-30``): every parameter maps over its leading axis
+    but the shared noise. The port's LCM sums over the latent batch dim
+    without a vmap; this is for user code that maps a kernel itself."""
+    return ({key: (0 if key != "noise" else None) for key in data.keys()},)
+
+
 def _one_hot(idx: torch.Tensor, num_tasks: int, like: torch.Tensor) -> torch.Tensor:
     """(…, n, num_tasks) rows selecting each point's task, in ``like``'s
     dtype and device: gathers become products that sum one term and zeros,

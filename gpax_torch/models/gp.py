@@ -30,11 +30,12 @@ import torch
 
 from .. import distributions as dist
 from .. import ppl
-from ..config import get_config
+from ..config import get_config, resolve_dtype
 from ..infer import MCMC, NUTS
 from ..kernels import get_kernel
 from ..ops.fused_density import gp_mvn_log_prob
 from ..ops.linalg import gp_predictive_mean_var, gp_predictive_moments, robust_mvn_sample
+from ..parallel.distributed_chol import active_sharded_linalg
 from ..utils.fn import call_batched
 from ..utils.utils import device_memory_budget, resolve_device, spawn, split_in_batches
 
@@ -59,9 +60,11 @@ class ExactGP:
         noise_prior: deprecated prior program for the noise.
         noise_prior_dist: prior over the noise variance (default LogNormal(0, 1)).
         lengthscale_prior_dist: prior over lengthscales (default LogNormal(0, 1)).
-        dtype: dtype of the data and hyperparameters (float32, which K1
-            and the fused likelihood take; the factor path runs float64
-            whatever it is).
+        dtype: dtype of the data and hyperparameters; None takes the
+            mode's default at construction: float32, or float64 after
+            ``enable_x64()``. K1 takes both; the fused likelihood only
+            float32, so a float64 model takes the composed route. The factor
+            path runs float64 whatever it is.
     """
 
     _exact_moments_ok = True
@@ -83,7 +86,7 @@ class ExactGP:
         noise_prior: Optional[Callable] = None,
         noise_prior_dist: Optional[dist.Distribution] = None,
         lengthscale_prior_dist: Optional[dist.Distribution] = None,
-        dtype: torch.dtype = torch.float32,
+        dtype: Optional[torch.dtype] = None,
     ) -> None:
         if noise_prior is not None:
             warnings.warn("`noise_prior` is deprecated; pass `noise_prior_dist` (a "
@@ -100,7 +103,7 @@ class ExactGP:
         self.noise_prior = noise_prior
         self.noise_prior_dist = noise_prior_dist
         self.lengthscale_prior_dist = lengthscale_prior_dist
-        self.dtype = dtype
+        self.dtype = resolve_dtype(dtype)
         self.X_train: Optional[torch.Tensor] = None
         self.y_train: Optional[torch.Tensor] = None
         self.mcmc: Optional[MCMC] = None
@@ -139,16 +142,19 @@ class ExactGP:
 
     def _fused_likelihood_ok(self, X: torch.Tensor, kernel_params) -> bool:
         """Whether ``model`` takes the fused likelihood (``gp.py:186-212``):
-        the RBF/Matérn hyperparameterization on 2-D float32 data with X
-        constant, and then ``use_fused_likelihood="always"``, or ``"auto"``
-        on a CUDA tensor with n ≤ ``fused_likelihood_max_n``. The JAX rule's
-        sharded-linalg test has no counterpart: ``parallel/`` is not ported
-        and ``distributed_chol`` will not be (ROADMAP slice 8)."""
+        outside ``parallel.sharded_linalg`` (whose mesh-split factorization
+        owns the density there), the RBF/Matérn hyperparameterization on 2-D
+        float32 data with X constant (so a float64 model, as under
+        ``enable_x64``, takes the composed route), and then
+        ``use_fused_likelihood="always"``, or ``"auto"`` on a CUDA tensor
+        with n ≤ ``fused_likelihood_max_n``."""
         cfg = get_config()
         if cfg.use_fused_likelihood == "never":
             return False
         if not getattr(type(self), "_input_is_constant", False):
             return False  # latent-input subclass: X needs real gradients
+        if active_sharded_linalg() is not None:
+            return False  # the mesh-split factorization owns the density
         if self.kernel_name not in ("RBF", "Matern"):
             return False
         if set(kernel_params) - {"k_length", "k_scale", "period"} or \
@@ -329,9 +335,11 @@ class ExactGP:
         gram, its jittered copy, factor, inverse and recursion temporaries,
         and their padded copies when n is no multiple of 128), three n·m
         (k_pX and its solves) and, with the test covariance, eight m² (k_pp,
-        the covariance, its symmetrized and jittered copies, factor)."""
+        the covariance, its symmetrized and jittered copies, factor); twice
+        that on float64 data (x64 mode), every word counted at 8 bytes."""
         n = self.X_train.shape[0]
-        per = 4 * (14 * n * n + 3 * n * m + (8 * m * m if with_test_cov else m))
+        per = self.X_train.element_size() * (14 * n * n + 3 * n * m
+                                             + (8 * m * m if with_test_cov else m))
         budget = device_memory_budget(self.X_train.device)
         return int(max(1, min(num_samples, budget // max(per, 1))))
 

@@ -43,7 +43,7 @@ class VarNoiseGP(ExactGP):
                  noise_mean_fn: Optional[Callable] = None,
                  noise_mean_fn_prior: Optional[Callable] = None,
                  noise_lengthscale_prior_dist: Optional[dist.Distribution] = None,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__(input_dim, kernel, mean_fn, kernel_prior, mean_fn_prior,
                          None, None, lengthscale_prior_dist, dtype)
         noise_kernel_ = get_kernel(noise_kernel)

@@ -24,7 +24,7 @@ class iBNN(ExactGP):
                  mean_fn_prior: Optional[Callable] = None,
                  noise_prior: Optional[Callable] = None,
                  noise_prior_dist: Optional[dist.Distribution] = None,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__(input_dim, None, mean_fn, nngp_prior, mean_fn_prior,
                          noise_prior, noise_prior_dist, dtype=dtype)
         self.kernel = get_kernel("NNGP", activation=activation, depth=depth)

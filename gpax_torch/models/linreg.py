@@ -53,9 +53,10 @@ class LinReg:
               device=None, rng_key=0):
         """``num_iterations`` Adam steps on ``device`` (None: the CUDA card)."""
         dev = resolve_device(device)
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        dtype = torch.get_default_dtype()  # float64 after enable_x64
+        x = torch.as_tensor(x, dtype=dtype, device=dev)
         x = x if x.ndim > 1 else x[:, None]
-        y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        y = torch.as_tensor(y, dtype=dtype, device=dev)
         guide = _MedianInitDiagonalNormal(self.model)
         self.svi = SVI(self.model, guide, Adam(learning_rate), Trace_ELBO())
         result = self.svi.run(rng_key, num_iterations, x, y)

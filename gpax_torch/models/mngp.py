@@ -35,7 +35,7 @@ class MeasuredNoiseGP(ExactGP):
                  kernel_prior: Optional[Callable] = None,
                  mean_fn_prior: Optional[Callable] = None,
                  lengthscale_prior_dist: Optional[dist.Distribution] = None,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__(input_dim, kernel, mean_fn, kernel_prior, mean_fn_prior,
                          None, None, lengthscale_prior_dist, dtype)
         self.measured_noise: Optional[torch.Tensor] = None

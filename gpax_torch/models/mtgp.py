@@ -129,11 +129,12 @@ class MultiTaskGP(ExactGP):
     def _chunk_size(self, num_samples: int, m: int, with_test_cov: bool) -> int:
         """ExactGP's rule on the LCM's gram sizes: num_tasks rows a point in
         the shared-input form, and per latent a data gram, a task gram and
-        their product beside each n², n·m and m² word."""
+        their product beside each n², n·m and m² word, at the data's
+        itemsize."""
         rows = self.X_train.shape[0] * (self.num_tasks if self.shared_input else 1)
         m = m * (self.num_tasks if self.shared_input else 1)
         extra = 3 * self.num_latents
-        per = 4 * ((14 + extra) * rows * rows + (3 + extra) * rows * m
+        per = self.X_train.element_size() * ((14 + extra) * rows * rows + (3 + extra) * rows * m
                    + ((8 + extra) * m * m if with_test_cov else m))
         budget = device_memory_budget(self.X_train.device)
         return int(max(1, min(num_samples, budget // max(per, 1))))

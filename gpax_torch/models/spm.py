@@ -40,7 +40,7 @@ class sPM:
                           FutureWarning)
         self.noise_prior = noise_prior
         self.noise_prior_dist = noise_prior_dist
-        self.dtype = torch.float32
+        self.dtype = torch.get_default_dtype()  # float64 after enable_x64
         self.mcmc: Optional[MCMC] = None
 
     def model(self, X: torch.Tensor, y: Optional[torch.Tensor] = None) -> None:

@@ -35,7 +35,7 @@ class vExactGP(ExactGP):
                  noise_prior: Optional[Callable] = None,
                  noise_prior_dist: Optional[dist.Distribution] = None,
                  lengthscale_prior_dist: Optional[dist.Distribution] = None,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__(input_dim, kernel, mean_fn, kernel_prior, mean_fn_prior,
                          noise_prior, noise_prior_dist, lengthscale_prior_dist, dtype)
 

@@ -22,7 +22,7 @@ class vi_iBNN(viGP):
                  nngp_prior: Optional[Callable] = None,
                  mean_fn_prior: Optional[Callable] = None,
                  noise_prior: Optional[Callable] = None,
-                 dtype: torch.dtype = torch.float32) -> None:
+                 dtype: Optional[torch.dtype] = None) -> None:
         super().__init__(input_dim, None, mean_fn, nngp_prior, mean_fn_prior, noise_prior,
                          dtype=dtype)
         self.kernel = get_kernel("NNGP", activation=activation, depth=depth)

@@ -31,7 +31,7 @@ class viGP(ExactGP):
                  noise_prior: Optional[Callable] = None,
                  noise_prior_dist: Optional[dist.Distribution] = None,
                  lengthscale_prior_dist: Optional[dist.Distribution] = None,
-                 guide: str = "delta", dtype: torch.dtype = torch.float32) -> None:
+                 guide: str = "delta", dtype: Optional[torch.dtype] = None) -> None:
         super().__init__(input_dim, kernel, mean_fn, kernel_prior, mean_fn_prior,
                          noise_prior, noise_prior_dist, lengthscale_prior_dist, dtype)
         self.guide_type = AutoNormal if guide == "normal" else AutoDelta

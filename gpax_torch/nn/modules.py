@@ -49,7 +49,7 @@ class Module:
 class FunctionalModule(Module):
     """Adapter wrapping a plain ``(init_fn, apply_fn)`` pair as a Module, so
     any user network plugs into viDKL/viMTDKL without subclassing:
-    ``init_fn(generator, x) -> params`` (a nested dict of float32 tensors),
+    ``init_fn(generator, x) -> params`` (a nested dict of tensors),
     ``apply_fn(params, x) -> (n, z_dim)``."""
 
     def __init__(self, init_fn: Callable, apply_fn: Callable):
@@ -78,7 +78,7 @@ def as_module(nn) -> Module:
 
 
 def _trunc_normal(generator, shape, scale: float) -> torch.Tensor:
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return scale * w
 
@@ -148,7 +148,7 @@ class ConvNet(Module):
                 "w": _trunc_normal(generator, (3, 3, c_in, c_out), 1.0 / math.sqrt(9 * c_in)),
                 "b": torch.zeros(c_out)}
             c_in = c_out
-        d_flat = self._forward_convs(params, x.to(torch.float32)).shape[-1]
+        d_flat = self._forward_convs(params, x.to(torch.get_default_dtype())).shape[-1]
         params["dense_0"] = _linear_init(generator, d_flat, self.dense_dim)
         params["head"] = _linear_init(generator, self.dense_dim, self.embedim)
         return params
@@ -219,7 +219,7 @@ def _prototype(module: Module, input_shape: Tuple[int, ...]):
     key = tuple(input_shape)
     if key not in cache:
         cache[key] = module.init(torch.Generator().manual_seed(_PROTO_SEED),
-                                 torch.zeros(key, dtype=torch.float32))
+                                 torch.zeros(key))
     return cache[key]
 
 

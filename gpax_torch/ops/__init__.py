@@ -1,4 +1,4 @@
-from .chol import blocked_trtri, chol_inv
+from .chol import blocked_eligible, blocked_trtri, chol_inv
 from .fused_density import gp_mvn_log_prob
 from .linalg import (
     cho_solve,
@@ -15,6 +15,7 @@ from .linalg import (
 from .panel_chol import panel_chol_factors, panel_cholesky, panel_tri_inv_t
 
 __all__ = [
+    "blocked_eligible",
     "blocked_trtri",
     "chol_inv",
     "safe_chol_inv",

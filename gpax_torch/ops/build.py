@@ -53,8 +53,9 @@ def _nvcc() -> str:
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gpax_gram_f32.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.gpax_gram_f32.restype = i
+    for entry in (lib.gpax_gram_f32, lib.gpax_gram_f64):
+        entry.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        entry.restype = i
     for entry in (lib.gpax_tile_tri_inv_f32, lib.gpax_tile_tri_inv_f64):
         entry.argtypes = [p, p, i, i, p]
         entry.restype = i

@@ -36,6 +36,16 @@ _CHOL_ENTRIES = {torch.float32: "gpax_tile_chol_inv_f32",
                  torch.float64: "gpax_tile_chol_inv_f64"}
 
 
+def blocked_eligible(n: int, dtype) -> bool:
+    """Whether a factor of size n in ``dtype`` takes the blocked scheme
+    (K2's ``blocked_trtri``, K3's ``chol_inv``): True for float32 and
+    float64 at every n. The JAX package gates its Pallas path on a TPU, a
+    size threshold and float32 (``chol.py:292-306``); the port takes K2 and
+    K3 at every n in both dtypes, the kernel or its twin by the tensor's
+    device, never by a threshold."""
+    return dtype in (torch.float32, torch.float64)
+
+
 def tile_tri_inv_twin(L: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K2: ``solve_triangular(L_tile, I)`` per tile."""
     B, n, _ = L.shape

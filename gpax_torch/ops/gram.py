@@ -7,7 +7,11 @@ inputs, ``map(r²) + diag(noise_eff)`` with r² = ‖xs‖² − 2·xs·zs + ‖
 so that the result equals ``k_scale·map(r²) + (noise + jitter)·I``.
 
 Dispatch is by device alone: :func:`gram_unscaled` launches K1 on a CUDA
-tensor and uses the plain twin on a CPU tensor. The backward
+tensor and uses the plain twin on a CPU tensor. K1 has a float32 and a
+float64 instantiation (``gpax_gram_f32``, ``gpax_gram_f64``), chosen by the
+inputs' dtype; the JAX package's Pallas gram casts to float32 (a TPU has no
+float64 unit), while the port's x64 mode stays float64 on the card as on
+its CPU twin. The backward
 (:class:`_Gram`) is closed-form matmul math in torch, as the JAX package
 leaves it to XLA (``pallas_gram.py:204-245``).
 
@@ -30,7 +34,11 @@ _KINDS = {"rbf": 0, "matern52": 1}
 
 _MAX_BATCH = 65535  # matrices a launch: a larger batch goes in slices
 
-launches = 0  # K1 launches in this process (the twin never counts)
+launches = 0  # K1 launches in this process, both dtypes (the twin never counts)
+launches_f64 = 0  # of which float64 launches
+
+# the C entry of K1 for each dtype it takes
+_ENTRIES = {torch.float32: "gpax_gram_f32", torch.float64: "gpax_gram_f64"}
 
 
 def _map(r2: torch.Tensor, kind: str) -> torch.Tensor:
@@ -72,36 +80,40 @@ def gram_twin(Xs, Zs, noise_eff, kind: str = "rbf", add_noise: bool = True):
 def gram_unscaled(Xs: torch.Tensor, Zs: torch.Tensor, noise_eff: torch.Tensor,
                   kind: str = "rbf", add_noise: bool = True) -> torch.Tensor:
     """``map(r²) + diag(noise_eff)`` for Xs (B, n, d), Zs (B, m, d) and
-    noise_eff (B, n): K1 on a CUDA tensor, the twin on a CPU tensor."""
+    noise_eff (B, n), all float32 or all float64: K1 on a CUDA tensor, the
+    twin on a CPU tensor."""
     if Xs.device.type == "cpu":
         return gram_twin(Xs, Zs, noise_eff, kind, add_noise)
-    global launches
+    global launches, launches_f64
     if Xs.device.type != "cuda":
         raise ValueError(f"gram: unsupported device {Xs.device}")
+    if Xs.dtype not in _ENTRIES:
+        raise ValueError(f"gram: dtype {Xs.dtype}; K1 takes float32 or float64")
     for name, t, nd in (("Xs", Xs, 3), ("Zs", Zs, 3), ("noise_eff", noise_eff, 2)):
-        if t.device != Xs.device or t.dtype != torch.float32 or t.ndim != nd \
+        if t.device != Xs.device or t.dtype != Xs.dtype or t.ndim != nd \
                 or not t.is_contiguous():
-            raise ValueError(f"gram: {name} must be a contiguous {nd}-D float32 "
+            raise ValueError(f"gram: {name} must be a contiguous {nd}-D {Xs.dtype} "
                              f"tensor on {Xs.device}")
     B, n, d = Xs.shape
     m = Zs.shape[1]
     if Zs.shape != (B, m, d) or noise_eff.shape != (B, n):
         raise ValueError(f"gram: shapes {tuple(Xs.shape)}, {tuple(Zs.shape)}, "
                          f"{tuple(noise_eff.shape)} do not match")
-    out = torch.empty((B, n, m), dtype=torch.float32, device=Xs.device)
+    out = torch.empty((B, n, m), dtype=Xs.dtype, device=Xs.device)
     if out.numel() == 0:
         return out
-    lib = build.library()
+    entry = getattr(build.library(), _ENTRIES[Xs.dtype])
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     # one launch per slice of at most _MAX_BATCH matrices (the sparse GP's
     # k(x, x) diagonal is a batch of n 1×1 grams)
     for b0 in range(0, B, _MAX_BATCH):
         b1 = min(B, b0 + _MAX_BATCH)
-        err = lib.gpax_gram_f32(
+        err = entry(
             Xs[b0:b1].data_ptr(), Zs[b0:b1].data_ptr(), noise_eff[b0:b1].data_ptr(),
             out[b0:b1].data_ptr(), b1 - b0, n, m, d, _KINDS[kind], int(add_noise), stream)
         build.check(err, "gram")
         launches += 1
+        launches_f64 += Xs.dtype == torch.float64
     return out
 
 

@@ -83,7 +83,7 @@ def halfnormal_dist(scale: float = None) -> dist.HalfNormal:
 
 
 def _data(x) -> torch.Tensor:
-    return x if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.float32)
+    return x if torch.is_tensor(x) else torch.as_tensor(x, dtype=torch.get_default_dtype())
 
 
 def gamma_dist(c: float = None, r: float = None, input_vec=None) -> dist.Gamma:

@@ -11,6 +11,7 @@ from .monitor import debug_nans, fit_report, profile, timed
 from .utils import (
     device_memory_budget,
     dviz,
+    enable_x64,
     get_haiku_dict,
     get_keys,
     host_bool,
@@ -37,6 +38,7 @@ from ..priors.priors import (  # noqa: E402
 )
 
 __all__ = [
+    "enable_x64",
     "normal_dist",
     "lognormal_dist",
     "halfnormal_dist",

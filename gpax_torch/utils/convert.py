@@ -7,16 +7,17 @@ and both can predict from the same state.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..config import resolve_dtype
 from .utils import resolve_device, tree_map
 
 
 def samples_from_numpy(samples: Dict[str, np.ndarray], device=None,
-                       dtype: torch.dtype = torch.float32,
+                       dtype: Optional[torch.dtype] = None,
                        chain_dim: bool = False) -> Dict[str, torch.Tensor]:
     """Posterior samples as numpy arrays (e.g. ``{"k_length": (S, d),
     "k_scale": (S,), "noise": (S,)}`` from ``gpax_tpu.ExactGP.get_samples()``,
@@ -26,6 +27,7 @@ def samples_from_numpy(samples: Dict[str, np.ndarray], device=None,
     ``chain_dim``, the arrays are grouped by chain, (C, S, …) as
     ``get_samples(chain_dim=True)`` gives them, and are flattened to
     (C·S, …), the draws that ``predict`` takes."""
+    dtype = resolve_dtype(dtype)
     out = {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
            for k, v in samples.items()}
     if chain_dim:

@@ -10,7 +10,9 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["get_keys", "spawn", "resolve_device", "split_in_batches", "split_dict",
+from ..config import enable_x64  # re-exported, as gpax.utils.enable_x64
+
+__all__ = ["enable_x64", "get_keys", "spawn", "resolve_device", "split_in_batches", "split_dict",
            "random_sample_dict", "dviz", "device_memory_budget", "host_bool", "host_syncs", "reset_host_syncs",
            "initialize_inducing_points", "preprocess_sparse_image", "get_haiku_dict",
            "tree_map"]

@@ -69,3 +69,17 @@ def test_import_leaves_jax_out():
 def test_public_names():
     assert gpax_torch.ExactGP is gpax_torch.models.ExactGP
     assert callable(gpax_torch.utils.get_keys)
+
+
+@pytest.mark.parametrize("order", [(True, False), (False, True, False)])
+def test_enable_x64_leaves_tf32_off_and_sets_the_default_dtype(order):
+    """enable_x64 switches torch's default dtype (is_x64 reads it back) and
+    leaves the fp32 matmul pins in place, both ways."""
+    try:
+        for on in order:
+            gpax_torch.enable_x64(on)
+            assert gpax_torch.config.is_x64() is on
+            assert torch.get_default_dtype() == (torch.float64 if on else torch.float32)
+            test_import_pins_fp32_matmul()
+    finally:
+        gpax_torch.enable_x64(False)

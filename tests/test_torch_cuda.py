@@ -88,9 +88,59 @@ def test_k1_gradient_on_card_matches_cpu(dev):
 
 
 def test_k1_rejects_what_it_does_not_take(dev):
+    """K1 takes float32 and float64 (since its float64 instantiation):
+    another dtype, or mixed dtypes, raise."""
+    X = torch.zeros((1, 8, 1), dtype=torch.float16, device=dev)
+    with pytest.raises(ValueError):
+        gram.gram_unscaled(X, X, torch.zeros((1, 8), dtype=torch.float16, device=dev))
     X = torch.zeros((1, 8, 1), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
-        gram.gram_unscaled(X, X, torch.zeros((1, 8), dtype=torch.float64, device=dev))
+        gram.gram_unscaled(X, X, torch.zeros((1, 8), dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+@pytest.mark.parametrize("n,m,d,B", [(1000, 1000, 1, 1), (517, 333, 8, 3), (64, 64, 70, 2),
+                                     (300, 301, 1, 1), (300, 302, 2, 2), (299, 299, 3, 1),
+                                     (17, 17, 2, 2), (1, 130, 1, 1)])
+def test_k1_float64_matches_twin(dev, kind, n, m, d, B):
+    """K1's float64 instantiation (``gpax_gram_f64``) against the float64
+    twin, on the float32 cases' shapes: unaligned rows, a ragged last column
+    group, d > 16 (several of its 16-feature chunks). Max abs error 1e-12:
+    float64 r² from norms of a few units rounds at ~1e-15."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    Xs = torch.randn((B, n, d), generator=g, device=dev, dtype=torch.float64) / d**0.5
+    same = n == m
+    Zs = Xs if same else torch.randn((B, m, d), generator=g, device=dev,
+                                     dtype=torch.float64) / d**0.5
+    nz = torch.rand((B, n), generator=g, device=dev, dtype=torch.float64)
+    before, before64 = gram.launches, gram.launches_f64
+    out = gram.gram_unscaled(Xs, Zs, nz, kind, same)
+    assert (gram.launches, gram.launches_f64) == (before + 1, before64 + 1)
+    assert out.dtype == torch.float64
+    ref = gram.gram_twin(Xs, Zs, nz, kind, same)
+    assert (out - ref).abs().max().item() <= 1e-12
+
+
+def test_exactgp_x64_fit_launches_float64_k1(dev):
+    """Under enable_x64 an ExactGP fit on the card takes the composed route
+    with float64 K1 launches only, and returns float64 draws."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, 64)
+    y = np.sin(3 * X)
+    gpax_torch.enable_x64()
+    try:
+        gp = gpax_torch.ExactGP(1, "RBF")
+        before, before64 = gram.launches, gram.launches_f64
+        gp.fit(0, X, y, num_warmup=20, num_samples=20, max_tree_depth=4,
+               print_summary=False, progress_bar=False)
+        torch.cuda.synchronize()
+        fit = gram.launches - before
+        assert fit > 0 and gram.launches_f64 - before64 == fit
+        assert gp.get_samples()["noise"].dtype == torch.float64
+        mean, _ = gp.predict(1, X, n=1)
+        assert mean.dtype == torch.float64 and bool(torch.isfinite(mean).all())
+    finally:
+        gpax_torch.enable_x64(False)
 
 
 @pytest.mark.parametrize("n,B", [(128, 1), (1000, 2), (2048, 1)])

@@ -9,21 +9,13 @@ import pytest
 
 import gpax_torch
 
-OMITTED = {
-    # the TPU dispatch threshold of the Pallas tile kernels: the port takes
-    # K2 and K3 at every n (gpax_torch/ops/linalg.py)
-    ("ops", "blocked_eligible"): "TPU dispatch threshold, not carried over",
-    # a jax.vmap in_axes helper; torch has no counterpart to feed
-    ("kernels.mtkernels", "get_in_axes"): "vmap in_axes helper of the JAX package",
-    # x64 mode waits for K1's float64 question (ROADMAP Queue 1 item 5)
-    ("", "enable_x64"): "float64 mode: ROADMAP Queue 1 item 5",
-    ("utils", "enable_x64"): "float64 mode: ROADMAP Queue 1 item 5",
-    ("config", "enable_x64"): "float64 mode: ROADMAP Queue 1 item 5",
-    ("config", "is_x64"): "float64 mode: ROADMAP Queue 1 item 5",
-}
-# a whole subpackage not ported: it shards over a JAX mesh, and one card
-# has nothing to shard (ROADMAP Queue 1 item 8)
-OMITTED_MODULES = {"parallel": "mesh sharding: ROADMAP Queue 1 item 8"}
+OMITTED: dict = {}
+OMITTED_MODULES: dict = {}
+# the names and the module omitted until the port filled them: x64 mode,
+# the blocked-scheme rule, the vmap in_axes helper and the parallel package
+PORTED_LATE = [("", "enable_x64"), ("utils", "enable_x64"), ("config", "enable_x64"),
+               ("config", "is_x64"), ("ops", "blocked_eligible"),
+               ("kernels.mtkernels", "get_in_axes"), ("parallel", "sharded_linalg")]
 
 # the package, its subpackages, and modules whose names users reach directly
 MODULES = ["", "acquisition", "distributions", "distributions.constraints", "infer",
@@ -54,13 +46,23 @@ def test_port_exports_every_reference_name(name):
         assert not [n for n in tmod.__all__ if not hasattr(tmod, n)]
 
 
-@pytest.mark.parametrize("key", sorted(OMITTED))
-def test_omissions_are_still_missing(key):
+def test_omissions_are_still_missing():
     """Each named omission is still absent from the port; once it is
-    ported, it leaves OMITTED."""
+    ported, it leaves OMITTED (now empty: the port has every name)."""
+    for name, attr in OMITTED:
+        tmod = importlib.import_module("gpax_torch" + ("." + name if name else ""))
+        assert not hasattr(tmod, attr), f"{attr} is ported now: drop it from OMITTED"
+    assert not OMITTED and not OMITTED_MODULES
+
+
+@pytest.mark.parametrize("key", PORTED_LATE)
+def test_late_ports_match_the_reference(key):
+    """The names that were omitted exist in the port and in gpax_tpu, and
+    the parallel package is importable as a module of the port."""
     name, attr = key
-    tmod = importlib.import_module("gpax_torch" + ("." + name if name else ""))
-    assert not hasattr(tmod, attr), f"{attr} is ported now: drop it from OMITTED"
+    for pkg in ("gpax_tpu", "gpax_torch"):
+        mod = importlib.import_module(pkg + ("." + name if name else ""))
+        assert callable(getattr(mod, attr)), f"{pkg}.{name}.{attr}"
 
 
 def test_top_level_names():

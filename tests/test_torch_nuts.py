@@ -135,7 +135,8 @@ def test_mcmc_correlated_gaussian_dense_mass():
     def model():
         tppl.sample("x", tdist.MultivariateNormal(torch.zeros(2), covariance_matrix=cov))
 
-    mcmc = MCMC(NUTS(model, dense_mass=True), num_warmup=400, num_samples=1000)
+    mcmc = MCMC(NUTS(model, dense_mass=True), num_warmup=400, num_samples=1000,
+                device="cpu")
     mcmc.run(torch.Generator().manual_seed(1))
     x = mcmc.get_samples()["x"].numpy()
     assert x.shape == (1000, 2)
@@ -168,7 +169,7 @@ def test_positive_latent_transform():
     def model():
         tppl.sample("s", tdist.LogNormal(0.0, 1.0))
 
-    mcmc = MCMC(NUTS(model), num_warmup=300, num_samples=1500)
+    mcmc = MCMC(NUTS(model), num_warmup=300, num_samples=1500, device="cpu")
     mcmc.run(3)
     s = mcmc.get_samples()["s"].numpy()
     assert (s > 0).all()
@@ -186,7 +187,7 @@ def test_unported_options_raise(kwargs):
     def model():
         tppl.sample("a", tdist.Normal(0.0, 1.0))
 
-    mcmc = MCMC(NUTS(model), 20, 30, **kwargs)
+    mcmc = MCMC(NUTS(model), 20, 30, device="cpu", **kwargs)
     mcmc.run(0)
     a = mcmc.get_samples(group_by_chain=True)["a"]
     assert a.shape == (2, 30) and bool(torch.isfinite(a).all())
@@ -197,7 +198,7 @@ def test_unported_options_raise(kwargs):
 def test_unported_run_options_raise(attr):
     """The segmented runner's options are not errors on a non-segmented run:
     as in gpax_tpu, they are ignored with a warning naming segment_size."""
-    mcmc = MCMC(NUTS(lambda: tppl.sample("a", tdist.Normal(0.0, 1.0))), 5, 5)
+    mcmc = MCMC(NUTS(lambda: tppl.sample("a", tdist.Normal(0.0, 1.0))), 5, 5, device="cpu")
     setattr(mcmc, attr, 1.0)
     with pytest.warns(UserWarning, match="segment_size"):
         mcmc.run(0)

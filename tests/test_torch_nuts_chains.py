@@ -273,7 +273,7 @@ def test_segmented_lockstep_draws_identical(dense):
 def test_multichain_vectorized_rhat():
     """tests/test_nuts.py:78."""
     mcmc = MCMC(NUTS(_normal_model), num_warmup=300, num_samples=600, num_chains=2,
-                chain_method="vectorized")
+                chain_method="vectorized", device="cpu")
     mcmc.run(4)
     grouped = mcmc.get_samples(group_by_chain=True)
     assert grouped["x"].shape == (2, 600)
@@ -286,7 +286,7 @@ def test_parallel_chains():
     """tests/test_nuts.py:93: "parallel" runs the lockstep program on the
     data's one device."""
     mcmc = MCMC(NUTS(_normal_model), num_warmup=200, num_samples=300, num_chains=4,
-                chain_method="parallel")
+                chain_method="parallel", device="cpu")
     mcmc.run(5)
     x = mcmc.get_samples(group_by_chain=True)["x"]
     assert x.shape == (4, 300) and bool(torch.isfinite(x).all())
@@ -420,7 +420,8 @@ def test_model_without_a_chain_dim_fails_by_name():
         tppl.factor("f", torch.zeros(3) - 0.5 * x.sum() ** 2)
 
     with pytest.warns(UserWarning, match="flat_model.*chain by chain"):
-        mcmc = MCMC(NUTS(flat_model), 5, 5, num_chains=2, chain_method="vectorized").run(0)
+        mcmc = MCMC(NUTS(flat_model), 5, 5, num_chains=2, chain_method="vectorized",
+                    device="cpu").run(0)
     assert mcmc.chain_by_chain
     x = mcmc.get_samples(group_by_chain=True)["x"]
     assert x.shape == (2, 5) and bool(torch.isfinite(x).all())
@@ -428,7 +429,8 @@ def test_model_without_a_chain_dim_fails_by_name():
 
 def test_window_options_warn_without_segments():
     """The window options keep their warning on an unsegmented lockstep run."""
-    mcmc = MCMC(NUTS(_normal_model), 5, 5, num_chains=2, chain_method="vectorized")
+    mcmc = MCMC(NUTS(_normal_model), 5, 5, num_chains=2, chain_method="vectorized",
+                device="cpu")
     mcmc.deadline = time.perf_counter() + 3600.0
     with pytest.warns(UserWarning, match="segment_size"):
         mcmc.run(0)

@@ -234,3 +234,29 @@ def test_device_cpu_puts_numpy_inputs_on_the_cpu():
     assert m.Xu.device.type == m.X_train.device.type == "cpu"
     mean, var = m.predict(None, X[:4], device="cpu")
     assert mean.device.type == var.device.type == "cpu" and mean.shape == (4,)
+
+
+@pytest.mark.parametrize("runner", ["mcmc", "svi"])
+def test_a_dataless_run_goes_to_the_card_unless_given_the_cpu(runner, monkeypatch):
+    """A model without tensor arguments runs on the card by default: without
+    one it raises with the device="cpu" hint, and the constructor's
+    ``device="cpu"`` runs it on the CPU."""
+    from gpax_torch import distributions as tdist
+    from gpax_torch import ppl as tppl
+    from gpax_torch.infer import MCMC, NUTS
+
+    def model():
+        tppl.sample("a", tdist.Normal(0.0, 1.0))
+
+    def run(**kw):
+        if runner == "mcmc":
+            mcmc = MCMC(NUTS(model), 10, 10, **kw)
+            mcmc.run(0)
+            return mcmc.get_samples()["a"]
+        return SVI(model, AutoNormal(model), 0.01, **kw).run(0, 10).losses
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run()
+    out = run(device="cpu")
+    assert out.device.type == "cpu" and out.shape == (10,) and bool(torch.isfinite(out).all())
