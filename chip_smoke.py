@@ -61,7 +61,21 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
    K1 launches in the fit, and K2; the main path's limits, and means within
    4 sd of the float32 composed fit's), predicts 2048 points in float64
    and runs EI on it, and checks that a model built after
-   ``enable_x64(False)`` is float32;
+   ``enable_x64(False)`` is float32; between the two, the precision phase:
+   K1's compensated instantiation (``gpax_gram_f32c``, bf16 hi/lo products
+   on the tensor cores) against its twin and against the "highest" K1 (the
+   JAX package's limits, 5e-4 RBF and 1e-3 Matérn) at 4096², d = 1, RBF,
+   config 2's 2455², d = 2, Matérn and 4096², d = 64, RBF, timed beside its
+   twin, the "highest" K1 and its bound; the four WᵀW modes
+   (``linalg.wtw_compensated``) timed on the fit's W with their errors
+   against the float64 WᵀW; and one composed fit of the same data under
+   ``gram_precision="compensated"`` and ``hmc_wtw_precision="compensated"``
+   (``wtw_precision`` left at "float64", so that ``MCMC.run`` switches the
+   WᵀW mode for the fit and back; 100 + 100 draws at depth 4), then
+   predict and EI: the main path's
+   limits, means within 4 sd of the composed fit's, only the compensated
+   K1 launched in the fit, every WᵀW of the fit compensated, and the
+   defaults restored after it;
    it also holds K1 and K2 against their twins at that path's own shapes and
    inputs: the fit's 4096×4096 gram, and predict's grams (4096×4096,
    1024×4096, 1024×1024) and float64 factors for one chunk of posterior
@@ -164,7 +178,8 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     transform), ``priors.gamma_dist(2, 5)`` lengthscales and
     ``priors.halfnormal_dist(0.1)`` noise; one chain on the fused route
     (100 + 100, depth 7), then 2 lockstep chains ("vectorized", segments
-    of 50) whose batched potential must be trusted, then predict on 2048
+    of 50, 100 + 50 at depth 5) whose batched potential must be trusted,
+    then predict on 2048
     points of [0, 2.4]: every w draw in (3, 7), divergences, accept,
     R-hat, each chain's means within 4 sd of the single chain's, one K1
     and one K2 launch a lockstep leapfrog, the posterior mean's RMSE on
@@ -179,12 +194,12 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
 23. runs examples/hypothesis_learning.py's workflow: linear and quadratic
     hypotheses of 1.5x² − 0.5 on a 512-point grid, 8 points measured to
     start, 4 rounds of ``hypo.step`` on the bandit's pick (eps-greedy;
-    200 + 200 draws; sPM, then the hypothesis as an ExactGP's mean, in
+    100 + 100 draws; sPM, then the hypothesis as an ExactGP's mean, in
     turns), checking each reward vector's shape and sign, K1/K2 launches
     on the GP-wrapped rounds, that both hypotheses were fitted and that the
     quadratic's mean reward beats the linear's;
-24. prints a JSON line of the kernels K1-K5 and K1's float64 instantiation
-    ("gram_f64") (time, twin time, library time,
+24. prints a JSON line of the kernels K1-K5, K1's float64 instantiation
+    ("gram_f64") and its compensated one ("gram_comp") (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
     ``{"ok": true, "device": {...}}``.
@@ -339,9 +354,10 @@ BNN_N, BNN_HIDDEN, BNN_WARMUP, BNN_SAMPLES = 300, [8, 4], 20, 20
 # lockstep leapfrog; at 50 + 50 they took 199 s (50 warmup steps hold no
 # mass window, so trees ran 3x longer) and k_scale's R-hat reached 1.100
 LOCK_CHAINS, LOCK_SEGMENT = 2, 50
-# PR 11 cut the draws from 100 + 100 to 100 + 50 and the depth from 7 to 5
-# for the run's limit (call 1, PR 11: 1164.89 s with the new phases);
-# the structured phase runs the same lockstep route at 100 + 100, depth 7
+# the draws are cut from 100 + 100 to 100 + 50 and the depth from 7 to 5
+# for the run's limit; the structured phase's lockstep chains take the same
+# cut (at 100 + 100, depth 7 they took 224 s of its 288 on an NVIDIA H100
+# 80GB HBM3 at 700 W)
 LOCK_WARMUP, LOCK_SAMPLES, LOCK_DEPTH = NUM_WARMUP, 50, 5
 LOCK_RHAT_MAX = 1.1
 # launches of K1 and K2 outside the tree's lockstep leapfrogs: the model's
@@ -351,7 +367,8 @@ LOCK_EXTRA_LAUNCHES = 30
 LOCK_SYNCS_MAX = 2.5  # host syncs per lockstep leapfrog
 # the structured ExactGP (examples/structured_gp.py at config 1's size):
 # SGP_N points of 1.2·sin(5x)·exp(−0.8x) + N(0, SGP_NOISE²) on [0, 1.2],
-# predicted on [0, 2.4]; the main path's draws, depth and lockstep chains
+# predicted on [0, 2.4]; one chain at the main path's draws and depth, the
+# lockstep chains at the lockstep path's
 SGP_N, SGP_NOISE, SGP_TRAIN_HI, SGP_PREDICT_HI = N_MAIN, 0.05, 1.2, 2.4
 SGP_RMSE_MAX = 0.03  # the posterior mean against the truth on [0, 1.2]
 # checkpoints: predict on CKPT_POINTS points, CKPT_CPU_DRAWS draws on the
@@ -361,9 +378,11 @@ SGP_RMSE_MAX = 0.03  # the posterior mean against the truth on [0, 1.2]
 CKPT_POINTS, CKPT_CPU_DRAWS = 256, 4
 CKPT_RTOL, CKPT_CARD_CPU_TOL = 1e-5, BO_CHECK_TOL
 # hypothesis learning (examples/hypothesis_learning.py): the grid, the
-# points measured to start, the rounds and each fit's draws
+# points measured to start, the rounds and each fit's draws (cut from 200 +
+# 200 for the run's limit: the phase took 105 s on an NVIDIA H100 80GB HBM3
+# at 700 W)
 HYPO_GRID, HYPO_START, HYPO_ROUNDS = 512, 8, 4
-HYPO_WARMUP, HYPO_SAMPLES = 200, 200
+HYPO_WARMUP, HYPO_SAMPLES = 100, 100
 # vExactGP: 4 tasks of 1024 points, 2 lockstep chains
 # (draws cut from 100 + 100 to 100 + 50, depth from 7 to 5, in PR 11)
 VGP_TASKS, VGP_N, VGP_CHAINS, VGP_SAMPLES, VGP_DEPTH = 4, 1024, 2, 50, 5
@@ -379,7 +398,32 @@ VIIBNN_FIT = (2048, 8, 500)       # n, d, SVI steps
 # change of precision: float32 outside the tensor cores (TF32 would round),
 # float64 on them (DMMA; cuBLAS runs the recursion's float64 GEMMs there)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12, torch.bfloat16: 989e12}
+
+# the precision phase: K1's compensated instantiation at (n, m, d, kind),
+# and its limit against the "highest" K1: the JAX package's own for its
+# d = 64 case (tests/test_pallas.py:81-100), or, where larger, the split's
+# error bound. hi + lo carries each feature to 2⁻¹⁶ relative (bf16 keeps 8
+# bits), so the cross term is off by at most 3·2⁻¹⁶·Σ|x||z| and r² by
+# 3·2⁻¹⁶·(‖x‖² + ‖z‖²), which the map passes on with slope ≤ ½ (RBF) or
+# ≤ 5/6 (Matérn); the error grows with the inputs' magnitude, not with r
+# (config 2's pixel coordinates over 12, up to 10.7, put 2Σlo² ≈ 6e-3 on
+# the diagonal's r²)
+K1C_SHAPES = ((N_MAIN, N_MAIN, 1, "rbf"), (VIGP_N, VIGP_N, 2, "matern52"),
+              (N_MAIN, N_MAIN, 64, "rbf"))
+K1C_VS_HIGHEST = {"rbf": 5e-4, "matern52": 1e-3}
+K1C_SLOPE = {"rbf": 0.5, "matern52": 5.0 / 6.0}
+WTW_MODES = ("float64", "highest", "compensated", "default")
+# compensated WᵀW against float64, relative to max|WᵀW|: the split carries W
+# to 2⁻¹⁶ relative (3·2⁻¹⁶ ≈ 4.6e-5 of the diagonal) plus fp32 sums of 4096
+# terms; bf16 results (a product that dropped its fp32 output) would be
+# off by ~2⁻⁹
+WTW_COMP_TOL = 1e-4
+# the compensated fit's draws and depth: at the main path's 100 + 100 and
+# depth 7 it took 294.96 s, 24182 leapfrogs where the float64 fit takes
+# 2832 (NVIDIA H100 80GB HBM3, 700 W), as the reduced-precision gradient's
+# error starves NUTS; depth 4 caps a transition at 15 leapfrogs
+COMP_WARMUP, COMP_SAMPLES, COMP_DEPTH = NUM_WARMUP, NUM_SAMPLES, 4
 
 
 def fail(msg: str) -> None:
@@ -430,14 +474,16 @@ def chol_inv_bound(B: int, m: int, dtype) -> dict:
 
 def reset_counts() -> None:
     torch.cuda.synchronize()
-    gram.launches = gram.launches_f64 = chol.launches = chol.chol_inv_launches = 0
+    gram.launches = gram.launches_f64 = gram.launches_comp = 0
+    chol.launches = chol.chol_inv_launches = 0
     panel_chol.cholesky_launches = panel_chol.tri_inv_launches = 0
 
 
 def counts() -> dict:
-    """Launches since the last reset: K1's float32 ("gram") and float64
-    ("gram_f64") instantiations apart, K2-K5."""
-    return {"gram": gram.launches - gram.launches_f64, "gram_f64": gram.launches_f64,
+    """Launches since the last reset: K1's float32 ("gram"), float64
+    ("gram_f64") and compensated ("gram_comp") instantiations apart, K2-K5."""
+    return {"gram": gram.launches - gram.launches_f64 - gram.launches_comp,
+            "gram_f64": gram.launches_f64, "gram_comp": gram.launches_comp,
             "trtri": chol.launches, "cholinv": chol.chol_inv_launches,
             "panel_chol": panel_chol.cholesky_launches,
             "panel_tri_inv": panel_chol.tri_inv_launches}
@@ -739,8 +785,11 @@ def captured(module, name: str):
 
 
 def k1_compare_calls(label: str, calls) -> None:
-    """K1 against its twin on each captured call of ``gram_unscaled``."""
-    for i, (Xs, Zs, nz, kind, same) in enumerate(calls):
+    """K1 against its twin on each captured call of ``gram_unscaled``, made
+    in the "highest" precision (the default config's)."""
+    for i, (Xs, Zs, nz, kind, same, *precision) in enumerate(calls):
+        if precision not in ([], ["highest"]):
+            fail(f"{label} gram {i}: precision {precision}, not the default's")
         (B, n, d), m = Xs.shape, Zs.shape[1]
         k1_compare(f"{label} gram {i}: {kind} d={d} B={B} {n}x{m} noise={same}",
                    Xs, Zs, nz, same, kind)
@@ -1657,6 +1706,197 @@ def x64_path(dev, composed: dict) -> dict:
     return launched
 
 
+def k1_comp_bound(B: int, n: int, m: int, d: int) -> dict:
+    """The compensated K1's least time: the bytes of ``k1_bound``; the three
+    bf16 products (6·n·m·d operations) at the tensor cores' bf16 rate, or
+    the map's 4 fp32 operations an element at the fp32 rate, whichever takes
+    longer."""
+    b = bound(4 * B * (n * d + m * d + n + n * m), 0.0)
+    t_ops = max(6 * B * n * m * d / PEAK_FLOPS[torch.bfloat16],
+                4 * B * n * m / PEAK_FLOPS[torch.float32])
+    if 1e3 * t_ops > b["bound_ms"]:
+        return {"bound_ms": 1e3 * t_ops, "bound_by": "operations"}
+    return b
+
+
+def check_k1_comp(dev) -> dict:
+    """K1's compensated instantiation (``gpax_gram_f32c``) at K1C_SHAPES:
+    one counted launch each, against its twin (the same split, exact bf16
+    products in both, fp32 sums in other orders: 1e-6 + 4·eps·(‖x‖² +
+    ‖z‖²), the rounding of the diagonal's r²) and against the "highest" K1
+    within the JAX package's limits for the dropped lo·lo term; each timed
+    beside its twin (in turns) and the "highest" K1, with its bound. The
+    first shape's numbers are the kernel's in the kernels line."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    eps = torch.finfo(torch.float32).eps
+    rows, worst = [], 0.0
+    for n, m, d, kind in K1C_SHAPES:
+        if d == 2:
+            X = torch.rand((1, n, d), generator=g, device=dev) * VIGP_SIZE / 12.0
+            nz = torch.full((1, n), 0.01, device=dev)
+        else:
+            X = (torch.rand((1, n, d), generator=g, device=dev) * 4.0 - 2.0) / (0.5 * d**0.5)
+            nz = torch.full((1, n), 0.1, device=dev)
+        label = f"{kind} d={d} {n}x{m}"
+        before = gram.launches_comp
+        out = gram.gram_unscaled(X, X, nz, kind, True, "compensated")
+        if gram.launches_comp != before + 1:
+            fail(f"K1 compensated at {label}: no compensated launch")
+        err = (out - gram.gram_twin(X, X, nz, kind, True, "compensated")).abs().max().item()
+        err_hi = (out - gram.gram_unscaled(X, X, nz, kind, True)).abs().max().item()
+        norms = 2 * (X * X).sum(-1).max().item()
+        tol = 1e-6 + 4 * eps * norms
+        tol_hi = max(K1C_VS_HIGHEST[kind], K1C_SLOPE[kind] * 3 * 2.0**-16 * norms)
+        print(f"K1 compensated {label} max|err| vs twin {err:.3e} (tol {tol:.1e}), vs "
+              f"highest {err_hi:.3e} (tol {tol_hi:.1e})", flush=True)
+        if not (err <= tol and err_hi <= tol_hi):
+            fail(f"K1 compensated at {label}: {err} vs its twin, {err_hi} vs highest")
+        worst = max(worst, err)
+        del out
+        ms, plain = paired_ms(lambda: gram.gram_unscaled(X, X, nz, kind, True, "compensated"),
+                              lambda: gram.gram_twin(X, X, nz, kind, True, "compensated"), 200)
+        hi_ms = cuda_ms(lambda: gram.gram_unscaled(X, X, nz, kind, True), 200)
+        b = k1_comp_bound(1, n, m, d)
+        print(f"K1 compensated time {label}: kernel {ms:.4f} ms, twin {plain:.4f} ms, highest "
+              f"K1 {hi_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
+        rows.append({"shape": [n, m, d], "kind": kind, "ms": ms, "plain_ms": plain,
+                     "highest_ms": hi_ms, "max_abs_err": err, "vs_highest": err_hi,
+                     "vs_highest_tol": tol_hi, **b})
+    return {"max_abs_err": worst, "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+            "library_ms": None, "bound_ms": rows[0]["bound_ms"],
+            "bound_by": rows[0]["bound_by"], "shapes": rows}
+
+
+def wtw_modes(gp) -> dict:
+    """The four WᵀW modes (``linalg.wtw_compensated``, as the composed
+    backward calls it, a symmetric consumer) on the float64 W of the fit's
+    gram at its first draw: ms by CUDA events, and max|err| of the result's
+    symmetric part (the part dK's consumers contract) against the float64
+    WᵀW relative to its largest entry, with the antisymmetric part that the
+    symmetric-equivalent gauge leaves. Compensated within WTW_COMP_TOL, and
+    one bf16 pass ("default") off by more: the bf16 products kept their
+    fp32 results."""
+    X = gp.X_train
+    s = {k: v[:1] for k, v in gp.get_samples().items()}
+    K = gp.kernel(X, X, s, s["noise"])[0]
+    _, W, _ = linalg._chol_tri_factors_ld(K)
+    del K
+    ref = W.mT @ W
+    scale = ref.abs().max().item()
+    out = {}
+
+    def measure():
+        A = linalg.wtw_compensated(W, True)
+        err = (0.5 * (A + A.mT) - ref).abs().max().item() / scale
+        asym = (0.5 * (A - A.mT)).abs().max().item() / scale
+        del A
+        return {"ms": cuda_ms(lambda: linalg.wtw_compensated(W, True), 10), "rel_err": err,
+                "antisymmetric": asym}
+
+    try:
+        for mode in WTW_MODES:
+            gpax_torch.set_config(wtw_precision=mode)
+            out[mode] = measure()
+        gpax_torch.set_config(wtw_precision="compensated", mvn_dk_gauge="exact")
+        out["compensated exact gauge"] = measure()
+    finally:
+        gpax_torch.set_config(wtw_precision="float64", mvn_dk_gauge="symmetric_equivalent")
+    print(f"WtW modes n={W.shape[-1]}: " + json.dumps(out), flush=True)
+    if not (out["compensated"]["rel_err"] <= WTW_COMP_TOL
+            and out["default"]["rel_err"] > out["compensated"]["rel_err"]):
+        fail(f"WtW modes: compensated {out['compensated']['rel_err']} (tol {WTW_COMP_TOL}), "
+             f"default {out['default']['rel_err']}")
+    return out
+
+
+def precision_path(dev, composed: dict) -> dict:
+    """The main path's composed fit under the compensated modes:
+    ``gram_precision="compensated"`` and ``hmc_wtw_precision="compensated"``
+    with ``wtw_precision`` left at "float64", so that ``MCMC.run`` sets the
+    compensated WᵀW for the fit and restores float64 after it; COMP_WARMUP
+    + COMP_SAMPLES draws at depth COMP_DEPTH, then predict on 2048 points
+    and EI. The main path's
+    limits, means within FUSED_SD sd of the float64 composed fit's, only the
+    compensated K1 launched in the fit, every WᵀW of the fit compensated (a
+    spy on ``linalg.wtw_compensated`` reads the mode at each call), and the
+    config's defaults back after it."""
+    X_np, y_np = bench_data(N_MAIN)
+    X = torch.as_tensor(X_np, device=dev)
+    y = torch.as_tensor(y_np, device=dev)
+    k_fit, k_pred = get_keys(0)
+    seen = []
+    wtw = linalg.wtw_compensated
+
+    def spy(W, *args, **kwargs):
+        seen.append(gpax_torch.get_config().wtw_precision)
+        return wtw(W, *args, **kwargs)
+
+    gpax_torch.set_config(gram_precision="compensated", hmc_wtw_precision="compensated")
+    linalg.wtw_compensated = spy
+    try:
+        gp = gpax_torch.ExactGP(1, "RBF")
+        reset_counts()
+        t0 = time.perf_counter()
+        with route("never"):
+            gp.fit(k_fit, X, y, num_warmup=COMP_WARMUP, num_samples=COMP_SAMPLES,
+                   max_tree_depth=COMP_DEPTH, print_summary=False, progress_bar=False)
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launch = counts()
+        modes_in_fit = sorted(set(seen))
+        after_fit = gpax_torch.get_config().wtw_precision
+        samples = gp.get_samples()
+        stats = gp.mcmc.get_extra_fields()
+        accept = stats["accept_prob"].mean().item()
+        divergences = int(stats["diverging"].sum())
+        X_new = torch.linspace(-2, 2, PREDICT_M, device=dev)[:, None]
+        reset_counts()
+        t0 = time.perf_counter()
+        mean, draws = gp.predict_in_batches(k_pred, X_new, batch_size=PREDICT_BATCH,
+                                            noiseless=True)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        pred_launch = counts()
+        ei, ei_s, ei_launch = timed(lambda: acq.EI(11, gp, X_new))
+    finally:
+        linalg.wtw_compensated = wtw
+        gpax_torch.set_config(gram_precision="highest", hmc_wtw_precision=None)
+    leapfrogs = gp.mcmc.num_leapfrogs
+    rmse = float(np.sqrt(np.mean((mean.numpy() - np.sin(2 * X_new[:, 0].cpu().numpy())) ** 2)))
+    summary = {"num_warmup": COMP_WARMUP, "num_samples": COMP_SAMPLES,
+               "max_tree_depth": COMP_DEPTH, "fit_s": fit_s, "leapfrogs": leapfrogs,
+               "ms_per_leapfrog": 1e3 * fit_s / max(leapfrogs, 1), "accept_mean": accept,
+               "divergences": divergences, "wtw_modes_in_fit": modes_in_fit,
+               "wtw_calls_in_fit": len(seen), "wtw_precision_after_fit": after_fit,
+               "predict_s": pred_s, "ei_s": ei_s, "posterior_rmse": rmse,
+               "posterior_mean": {k: v.float().mean().item() for k, v in samples.items()},
+               "launches_fit": fit_launch, "launches_predict": pred_launch,
+               "launches_ei": ei_launch}
+    print(f"ExactGP compensated fit n={N_MAIN}: " + json.dumps(summary), flush=True)
+    if not all(bool(torch.isfinite(v).all()) for v in samples.values()):
+        fail("compensated fit: non-finite posterior samples")
+    if (fit_launch["gram_comp"] <= 0 or fit_launch["gram"] != 0 or fit_launch["gram_f64"] != 0
+            or fit_launch["trtri"] <= 0):
+        fail(f"compensated fit: launches {fit_launch}: the compensated K1 and K2 only")
+    if modes_in_fit != ["compensated"] or after_fit != "float64":
+        fail(f"compensated fit: WtW modes {modes_in_fit} in the fit, {after_fit} after it")
+    if not 0.5 <= accept <= 0.99:
+        fail(f"compensated fit: mean accept {accept} outside [0.5, 0.99]")
+    if divergences > 0.05 * COMP_SAMPLES:
+        fail(f"compensated fit: {divergences} divergences in {COMP_SAMPLES} draws")
+    if not rmse <= 0.03:
+        fail(f"compensated fit: posterior RMSE {rmse} > 0.03")
+    for name, t in (("predict mean", mean), ("predict draws", draws), ("EI", ei)):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"compensated fit: {name} is not finite")
+    check_fused_posterior(composed, samples, "compensated")
+    if gpax_torch.get_config() != gpax_torch.config.Config():
+        fail(f"the config after the precision phase is not the default: {gpax_torch.get_config()}")
+    launched = {"fit": fit_launch, "predict": pred_launch, "EI": ei_launch}
+    require_launches("ExactGP compensated", launched, ("gram_comp", "trtri"))
+    return launched, summary
+
+
 def parallel_path(gp) -> dict:
     """``gpax_torch.parallel`` on the card, on the float32 composed n = 4096
     fit: ``sharded_predict`` and ``sharded_acquisition(EI)`` on
@@ -2264,7 +2504,7 @@ def check_vidkl_shapes(model, X_pool) -> None:
         log_density(model.model, (X, y), {}, vidkl_sites(model), (VIDKL_MODELS,))
         model.get_mvn_posterior(X_pool, model.nn_params, model.kernel_params)
     k1_compare_calls("viDKL config5", grams)
-    Xs, _, nz, kind, _ = grams[0]
+    Xs, _, nz, kind = grams[0][:4]
     del grams
     k2_compare_calls("viDKL config5", factors, (VIDKL_MEASURED,))
     del factors
@@ -2421,15 +2661,18 @@ def sgp_truth(x: np.ndarray) -> np.ndarray:
 
 
 def _sgp_fit(gp, X, y, chains: int) -> dict:
-    """Fit the structured GP (one chain, or LOCK_CHAINS in lockstep) and
-    return its numbers, its K1/K2 launches and its checks' inputs."""
+    """Fit the structured GP (one chain at the main path's draws and depth,
+    or LOCK_CHAINS in lockstep at the lockstep path's) and return its
+    numbers, its K1/K2 launches and its checks' inputs."""
     k_fit, _ = get_keys(0)
     lockstep = dict(num_chains=chains, chain_method="vectorized", segment_size=LOCK_SEGMENT) \
         if chains > 1 else {}
+    warmup, samples, depth = ((LOCK_WARMUP, LOCK_SAMPLES, LOCK_DEPTH) if chains > 1
+                              else (NUM_WARMUP, NUM_SAMPLES, MAX_DEPTH))
     reset_counts()
     reset_host_syncs()
     t0 = time.perf_counter()
-    gp.fit(k_fit, X, y, num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES, max_tree_depth=MAX_DEPTH,
+    gp.fit(k_fit, X, y, num_warmup=warmup, num_samples=samples, max_tree_depth=depth,
            print_summary=False, progress_bar=False, **lockstep)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
@@ -2439,15 +2682,16 @@ def _sgp_fit(gp, X, y, chains: int) -> dict:
     by_chain = gp.get_samples(chain_dim=True)
     steps = mcmc.num_lockstep_leapfrogs
     return {
-        "chains": chains, "fit_s": fit_s, "leapfrogs": mcmc.num_leapfrogs,
+        "chains": chains, "num_warmup": warmup, "num_samples": samples, "max_tree_depth": depth,
+        "fit_s": fit_s, "leapfrogs": mcmc.num_leapfrogs,
         "lockstep_leapfrogs": steps, "ms_per_leapfrog": 1e3 * fit_s / max(steps, 1),
-        "chain_draws_per_s": chains * NUM_SAMPLES / fit_s,
+        "chain_draws_per_s": chains * samples / fit_s,
         "accept_mean": stats["accept_prob"].mean().item(),
         "divergences": int(stats["diverging"].sum()),
         "host_syncs_per_leapfrog": syncs / max(steps, 1),
         "chain_by_chain": mcmc.chain_by_chain,
         "w_range": [by_chain["w"].min().item(), by_chain["w"].max().item()],
-        "chain_means": {k: v.float().reshape(chains, NUM_SAMPLES, -1).mean(1).tolist()
+        "chain_means": {k: v.float().reshape(chains, samples, -1).mean(1).tolist()
                         for k, v in by_chain.items()},
         "launches_fit": counts(),
     }
@@ -2485,8 +2729,7 @@ def structured_path(dev):
     train = x <= SGP_TRAIN_HI
     rmse = float(np.sqrt(np.mean(err[train] ** 2)))
     rmse_extra = float(np.sqrt(np.mean(err[~train] ** 2)))
-    summary = {"n": SGP_N, "num_warmup": NUM_WARMUP, "num_samples": NUM_SAMPLES,
-               "max_tree_depth": MAX_DEPTH, "segment_size": LOCK_SEGMENT,
+    summary = {"n": SGP_N, "segment_size": LOCK_SEGMENT,
                "one_chain_fused": {k: v for k, v in one.items() if k != "launches_fit"},
                "lockstep": {k: v for k, v in many.items() if k != "launches_fit"},
                "predict_m": PREDICT_M, "predict_s": pred_s, "rmse_train_range": rmse,
@@ -2497,7 +2740,7 @@ def structured_path(dev):
         w = fit["w_range"]
         if not (3.0 < w[0] and w[1] < 7.0):
             fail(f"structured {run}: w draws {w} leave (3, 7)")
-        if fit["divergences"] > 0.05 * fit["chains"] * NUM_SAMPLES:
+        if fit["divergences"] > 0.05 * fit["chains"] * fit["num_samples"]:
             fail(f"structured {run}: {fit['divergences']} divergences")
         if not 0.5 <= fit["accept_mean"] <= 0.99:
             fail(f"structured {run}: mean accept {fit['accept_mean']}")
@@ -2704,6 +2947,10 @@ def main() -> None:
     with phase("parallel on the composed fit"):
         paths["parallel"] = parallel_path(gp)
     composed = gp.get_samples()
+    with phase("precision modes"):
+        k1_comp = check_k1_comp(dev)
+        wtw = wtw_modes(gp)
+        paths["ExactGP compensated"], comp_summary = precision_path(dev, composed)
     del gp
     torch.cuda.empty_cache()
     with phase("ExactGP x64 fit and predict"):
@@ -2780,6 +3027,8 @@ def main() -> None:
          "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram"), **k1},
         {"name": "gram_f64", "route": "cuda", "source": "gpax_torch/csrc/gram.cu",
          "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram_f64"), **k1_f64},
+        {"name": "gram_comp", "route": "cuda", "source": "gpax_torch/csrc/gram.cu",
+         "replaces": "gpax_tpu/ops/pallas_gram.py:64", **launches("gram_comp"), **k1_comp},
         {"name": "tile_tri_inv", "route": "cuda", "source": "gpax_torch/csrc/trtri.cu",
          "replaces": "gpax_tpu/ops/chol.py:221", **launches("trtri"), **k2},
         {"name": "tile_chol_inv", "route": "cuda", "source": "gpax_torch/csrc/cholinv.cu",
@@ -2791,6 +3040,8 @@ def main() -> None:
          "replaces": "scripts/panel_chol.py:170", **launches("panel_tri_inv"),
          "max_abs_err": float(panel_err[1]), **k45["k5"]},
     ]
+    print("precision modes: " + json.dumps({"wtw_modes": wtw, "compensated_fit": comp_summary}),
+          flush=True)
     print(f"whole run: {time.perf_counter() - t_start:.2f} s wall", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)

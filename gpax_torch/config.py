@@ -6,12 +6,31 @@ breaks the factorization. Importing this module pins PyTorch's fp32 matmul
 and convolution precision to full fp32 — the port's form of the JAX
 package's ``jax_default_matmul_precision="highest"`` rule.
 
-The JAX package's other precision modes (``compensated`` and ``default``
-WᵀW, ``hmc_wtw_precision``, the compensated gram) and its dispatch
-thresholds were measured on a TPU; they return only after the H100 has
-measured them. The port's one WᵀW mode, ``"float64"``, departs from the JAX
-package's float32 ``"highest"``: see ``ops/linalg.py``. Kernels are chosen
-by device, not by a switch.
+The JAX package's precision modes are the user's choice through
+:func:`set_config`, as there; the port's defaults keep the full-precision
+arithmetic that the H100 was measured with (PERF.md):
+
+- ``gram_precision``: the gram's cross term, ``"highest"`` (fp32 FMAs in
+  K1) or ``"compensated"`` (each float32 operand split into bf16 hi + lo,
+  hi·hi + (hi·lo + lo·hi) on the tensor cores with fp32 accumulation:
+  K1's ``gpax_gram_f32c``). A float64 gram (x64 mode) is float64 in
+  either mode, and the fused likelihood's gram is ``"highest"`` in either.
+- ``wtw_precision``: the backward's K⁻¹ = WᵀW (``ops.linalg.
+  wtw_compensated``), ``"float64"`` (the port's own, the default),
+  ``"highest"`` (fp32), ``"compensated"`` (hi/lo bf16 products with fp32
+  results) or ``"default"`` (one bf16 product). The factor path itself
+  (Cholesky, K2) stays float64 in every mode: see ``ops/linalg.py``.
+- ``mvn_dk_gauge``: under ``"compensated"``, ``"symmetric_equivalent"``
+  lets the composed and sharded backwards return hiᵀhi + 2·hiᵀlo, a dK
+  with the right symmetric part, where ``"exact"`` returns the symmetric
+  one.
+- ``hmc_wtw_precision``: a ``wtw_precision`` that ``MCMC.run`` sets for
+  the run and restores after it; None (the port's default) sets none.
+
+The JAX package's dispatch fields (``matmul_precision``, ``use_pallas``,
+``pallas_min_elems``, ``use_pallas_chol``, ``pallas_chol_min_n``) are not
+ported: the port picks kernels by device and pins fp32 matmuls, and
+:func:`set_config` refuses them.
 
 ``use_fused_likelihood`` chooses a route, not a kernel: ExactGP's fused
 likelihood (``ops/fused_density.py``) and its composed one both launch K1
@@ -29,12 +48,23 @@ built with.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-# the one mode of each precision field that is ported
-_PORTED_MODES = {"gram_precision": "highest", "wtw_precision": "float64"}
 _FUSED_MODES = ("auto", "always", "never")
+_WTW_MODES = ("float64", "highest", "compensated", "default")
+# the values each mode field takes
+_MODES = {"gram_precision": ("highest", "compensated"), "wtw_precision": _WTW_MODES,
+          "mvn_dk_gauge": ("exact", "symmetric_equivalent"),
+          "hmc_wtw_precision": (None,) + _WTW_MODES, "use_fused_likelihood": _FUSED_MODES}
+# the JAX package's dispatch fields, which the port leaves out
+_NOT_PORTED = {
+    name: "the port picks its kernels by device (a CUDA tensor launches the kernel, "
+          "a CPU tensor takes its twin) and pins fp32 matmuls; no switch or size "
+          "threshold chooses them"
+    for name in ("matmul_precision", "use_pallas", "pallas_min_elems", "use_pallas_chol",
+                 "pallas_chol_min_n")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +74,17 @@ class Config:
     Attributes:
         default_jitter: diagonal jitter the kernels add to same-shaped grams
             when the caller passes none.
-        gram_precision: cross-term precision of the gram; only ``"highest"``
-            (fp32 FMAs in kernel K1).
-        wtw_precision: precision of the factor path and the backward's
-            K⁻¹ = WᵀW; only ``"float64"``: Cholesky, K2's inverse and WᵀW in
-            float64 (``ops/linalg.py`` says why).
+        gram_precision: cross-term precision of the gram: ``"highest"``
+            (fp32 FMAs in kernel K1) or ``"compensated"`` (bf16 hi/lo
+            products on the tensor cores, K1's compensated instantiation).
+        wtw_precision: precision of the backward's K⁻¹ = WᵀW:
+            ``"float64"`` (the port's own), ``"highest"``, ``"compensated"``
+            or ``"default"``; the factor path is float64 in every mode
+            (``ops/linalg.py`` says why).
+        mvn_dk_gauge: ``"symmetric_equivalent"`` or ``"exact"``, the gauge
+            of the composed backward's dK under ``"compensated"`` WᵀW.
+        hmc_wtw_precision: the ``wtw_precision`` of an ``MCMC.run``, or
+            None to keep ``wtw_precision`` there too.
         use_fused_likelihood: ExactGP's likelihood route (``models/gp.py``,
             ``_fused_likelihood_ok``): ``"auto"`` takes the fused op on a
             CUDA tensor with n ≤ ``fused_likelihood_max_n``, ``"always"``
@@ -61,6 +97,10 @@ class Config:
     default_jitter: float = 1e-6
     gram_precision: str = "highest"
     wtw_precision: str = "float64"
+    mvn_dk_gauge: str = "symmetric_equivalent"
+    # the JAX package's default is "default" (one bf16 pass); the port's
+    # waits for its benchmark
+    hmc_wtw_precision: Optional[str] = None
     use_fused_likelihood: str = "auto"
     # The largest n at which the fused route's likelihood+grad was faster in
     # chip_smoke.py's table (fused and composed in turns, n = 512 to 8192)
@@ -106,15 +146,15 @@ def get_config() -> Config:
 
 
 def set_config(**kwargs) -> Config:
+    """Replace the named fields. A mode outside its field's values raises
+    ``ValueError``, a dispatch field of the JAX package
+    ``NotImplementedError``, an unknown name ``TypeError``."""
     global _config
-    for name, mode in _PORTED_MODES.items():
-        if kwargs.get(name, mode) != mode:
-            raise NotImplementedError(
-                f"{name}={kwargs[name]!r}: only {mode!r} is ported; the other "
-                "modes wait for H100 measurements")
-    if kwargs.get("use_fused_likelihood", "auto") not in _FUSED_MODES:
-        raise ValueError(f"use_fused_likelihood={kwargs['use_fused_likelihood']!r}: "
-                         f"one of {_FUSED_MODES}")
+    for name, value in kwargs.items():
+        if name in _NOT_PORTED:
+            raise NotImplementedError(f"{name} is not ported: {_NOT_PORTED[name]}")
+        if name in _MODES and value not in _MODES[name]:
+            raise ValueError(f"{name}={value!r}: one of {_MODES[name]}")
     _config = dataclasses.replace(_config, **kwargs)
     pin_fp32_matmul()
     return _config

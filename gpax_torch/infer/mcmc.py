@@ -32,6 +32,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..config import get_config, set_config
 from ..ppl import initialize_model, make_potential_fn, seed, substitute
 from ..ppl import trace as ppl_trace
 from ..utils.utils import resolve_device, spawn
@@ -83,6 +84,25 @@ class MCMC:
         self._stats: Optional[Dict[str, torch.Tensor]] = None
 
     def run(self, rng_key, *model_args, extra_fields=(), init_params=None, **model_kwargs):
+        """Run the chains (``gpax_tpu/infer/mcmc.py:62-79``). A config
+        ``hmc_wtw_precision`` that differs from ``wtw_precision`` is the
+        ``wtw_precision`` of this call, whichever runner it takes (one
+        chain, segments, lockstep or sequential chains), and the old one is
+        restored after it, also when it raises: the sampler's gradient
+        shapes only its proposals, while SVI, predict and user gradients
+        keep ``wtw_precision``."""
+        cfg = get_config()
+        if cfg.hmc_wtw_precision and cfg.hmc_wtw_precision != cfg.wtw_precision:
+            set_config(wtw_precision=cfg.hmc_wtw_precision)
+            try:
+                return self._run(rng_key, *model_args, extra_fields=extra_fields,
+                                 init_params=init_params, **model_kwargs)
+            finally:
+                set_config(wtw_precision=cfg.wtw_precision)
+        return self._run(rng_key, *model_args, extra_fields=extra_fields,
+                         init_params=init_params, **model_kwargs)
+
+    def _run(self, rng_key, *model_args, extra_fields=(), init_params=None, **model_kwargs):
         single = self.num_chains == 1
         lockstep = not single and self.chain_method != "sequential"
         ignored = [n for n in ("segment_callback", "deadline", "warmup_depth_cap")

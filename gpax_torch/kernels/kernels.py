@@ -49,9 +49,11 @@ def _add_diag_noise(k, X, Z, noise, jitter, batch_ndim: int = 0):
 def square_scaled_distance(X: torch.Tensor, Z: torch.Tensor,
                            lengthscale: Union[torch.Tensor, float] = 1.0) -> torch.Tensor:
     """‖(x − z)/ℓ‖² for all pairs, in matmul form, clipped at 0 (fp32
-    matmuls: the config pins TF32 off)."""
+    matmuls: the config pins TF32 off), with the cross term of the config's
+    ``gram_precision`` (``kernels.py:59-77``): the hi/lo split under
+    ``"compensated"`` for float32 inputs."""
     ls = _lengthscale(lengthscale, X)
-    return scaled_sq_dist(X / ls, Z / ls)
+    return scaled_sq_dist(X / ls, Z / ls, get_config().gram_precision)
 
 
 def RBFKernel(X: torch.Tensor, Z: torch.Tensor, params: Dict[str, torch.Tensor],

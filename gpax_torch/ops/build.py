@@ -53,7 +53,7 @@ def _nvcc() -> str:
 
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    for entry in (lib.gpax_gram_f32, lib.gpax_gram_f64):
+    for entry in (lib.gpax_gram_f32, lib.gpax_gram_f32c, lib.gpax_gram_f64):
         entry.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
         entry.restype = i
     for entry in (lib.gpax_tile_tri_inv_f32, lib.gpax_tile_tri_inv_f64):

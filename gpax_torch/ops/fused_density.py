@@ -19,10 +19,13 @@ Cholesky in float64 and ``blocked_trtri`` on kernel K2. It keeps m, W and α
 for the backward; for RBF map' = −m/2 needs no recompute, Matérn-5/2
 recomputes r².
 
-Precision: W, α, β, WᵀW, C and the map chain after it are float64, the
-port's one ``wtw_precision`` (``"float64"``, see ``ops/linalg.py``), where
-the JAX backward forms WᵀW with ``wtw_compensated`` in float32. This is the
-departure the composed route's ``_MVNLogProb`` already makes, not a new one.
+Precision: W, α, β, C and the map chain after it are float64, as in the
+composed route's ``_MVNLogProb``; WᵀW takes the config's
+``wtw_precision`` through ``linalg.wtw_compensated`` (float64 by default),
+as the JAX backward does (``fused_density.py:111-117``), never as a
+symmetric consumer: C must be symmetric here. The gram stays
+``"highest"`` whatever ``gram_precision`` says, as the JAX fused op calls
+its Pallas gram without a precision.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import torch
 
 from . import gram as _gram
 from .gram import _maps
-from .linalg import _LOG_2PI, _chol_tri_factors_ld, _unbroadcast
+from .linalg import _LOG_2PI, _chol_tri_factors_ld, _unbroadcast, wtw_compensated
 
 
 def _guard(x: torch.Tensor, ok: torch.Tensor, batch, like: torch.Tensor) -> torch.Tensor:
@@ -82,7 +85,7 @@ class _GPMVNLogProb(torch.autograd.Function):
         beta = (W.mT @ alpha[..., None])[..., 0]
         # every output is linear in C = ½g·D, D = ββᵀ − WᵀW, so D is formed
         # in place over WᵀW and ½g scales the small outputs
-        D = (W.mT @ W).baddbmm_(beta[..., :, None], beta[..., None, :], beta=-1.0)
+        D = wtw_compensated(W).baddbmm_(beta[..., :, None], beta[..., None, :], beta=-1.0)
         half_g, ks = 0.5 * g, ks.to(W.dtype)
         # diag(K) = k_scale·map(0) + noise_eff: k_scale's cotangent includes
         # the diagonal map term (m = 1 there, so in D∘m below); noise_eff's

@@ -6,10 +6,12 @@ cuSOLVER on the card) for L, then ``blocked_trtri`` (kernel K2 on a CUDA
 tensor, its twin on a CPU tensor) for W = L⁻¹, so every downstream solve is
 a matmul.
 
-The factor path works in float64 for a float32 gram (the config's
-``wtw_precision="float64"``, a departure from the JAX package's float32
-factor): the Cholesky factor, K2's inverse of it, and the density and its
-backward WᵀW are all float64. Measured on an H100 at n = 4096 (PERF.md,
+The factor path works in float64 for a float32 gram, a departure from the
+JAX package's float32 factor: the Cholesky factor, K2's inverse of it and
+the density are float64 in every mode. The backward's K⁻¹ = WᵀW takes the
+config's ``wtw_precision`` (:func:`wtw_compensated`): ``"float64"`` (the
+port's default) or one of the JAX package's float32 modes, ``"highest"``,
+``"compensated"`` and ``"default"``. Measured on an H100 at n = 4096 (PERF.md,
 ``scripts/torch_precision_probe.py``): an all-float32 path has potential
 errors of 0.8-4 and d/dlog(k_scale) errors of −2.3 to −4.3 (true 1.3 to
 4.9) at log k_scale 1.5-2.5, which starve NUTS of the restoring force in
@@ -35,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..config import get_config
 from ..utils.utils import host_bool
 from .chol import blocked_trtri, chol_inv
 
@@ -105,6 +108,71 @@ def _unbroadcast(x: torch.Tensor, shape) -> torch.Tensor:
     return x.reshape(shape)
 
 
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) bf16 halves of a float32 x: hi = rn(x), lo = rn(x − hi), so
+    hi + lo carries x to 2⁻¹⁶ relative (bf16 keeps 8 significant bits)."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of bf16 operands with fp32 accumulation and an fp32 result,
+    batched over leading dims. On a CUDA tensor the tensor cores' bf16
+    product with an fp32 output (``out_dtype``): a bf16 result would round
+    away what the hi/lo split keeps. On a CPU tensor the fp32 product of the
+    bf16 values, exact per product as on the card."""
+    if a.device.type != "cuda":
+        return a.float() @ b.float()
+    if a.ndim == b.ndim == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    batch = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    a3 = a.expand(batch + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
+    b3 = b.expand(batch + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
+    return torch.bmm(a3, b3, out_dtype=torch.float32).reshape(
+        batch + (a.shape[-2], b.shape[-1]))
+
+
+def wtw_compensated(W: torch.Tensor, symmetric_consumer: bool = False,
+                    matmul=None) -> torch.Tensor:
+    """K⁻¹ = WᵀW in the config's ``wtw_precision`` (``linalg.py:133-172``),
+    returned in W's dtype:
+
+    - ``"float64"``: the float64 product (the port's default);
+    - ``"highest"``: the fp32 product of W in float32 (TF32 off);
+    - ``"default"``: one bf16 product, bf16(W)ᵀbf16(W) with fp32 sums;
+    - ``"compensated"``: W in float32 split by :func:`split_bf16`,
+      hiᵀhi + (hiᵀlo + (hiᵀlo)ᵀ), loᵀlo dropped: at most 3·2⁻¹⁶ of a
+      diagonal entry off; for a ``symmetric_consumer`` under the config's
+      ``mvn_dk_gauge="symmetric_equivalent"``, hiᵀhi + 2·hiᵀlo, which has
+      the same symmetric part for one product fewer.
+
+    The bf16 products go through :func:`bf16_matmul`. ``matmul(a, b,
+    product)``, where given, computes ``product(a, b)`` for each product (the
+    mesh's row split in ``parallel/distributed_chol.py``)."""
+    cfg = get_config()
+    mode = cfg.wtw_precision
+    if matmul is None:
+        def matmul(a, b, product):
+            return product(a, b)
+    if mode == "float64":
+        W64 = W.to(torch.float64)
+        return matmul(W64.mT, W64, torch.matmul).to(W.dtype)
+    Wf = W.to(torch.float32)
+    if mode == "highest":
+        return matmul(Wf.mT, Wf, torch.matmul).to(W.dtype)
+    if mode == "default":
+        hi = Wf.to(torch.bfloat16)
+        return matmul(hi.mT, hi, bf16_matmul).to(W.dtype)
+    if mode != "compensated":
+        raise ValueError(f"wtw_precision={mode!r}")
+    hi, lo = split_bf16(Wf)
+    main = matmul(hi.mT, hi, bf16_matmul)
+    cross = matmul(hi.mT, lo, bf16_matmul)
+    if symmetric_consumer and cfg.mvn_dk_gauge == "symmetric_equivalent":
+        return main.add_(cross, alpha=2.0).to(W.dtype)
+    return main.add_(cross + cross.mT).to(W.dtype)
+
+
 class _MVNLogProb(torch.autograd.Function):
     @staticmethod
     def forward(ctx, K, diff):
@@ -121,10 +189,13 @@ class _MVNLogProb(torch.autograd.Function):
         K_shape, K_dtype, diff_shape, diff_dtype = ctx.metas
         g = g.to(W.dtype)
         beta = (W.mT @ alpha.unsqueeze(-1)).squeeze(-1)
-        # ∂logp/∂K = ½(ββᵀ − K⁻¹) with K⁻¹ = WᵀW, formed in float64: in
-        # float32 the cancellation against ββᵀ biases d/dlog(k_scale)
+        # ∂logp/∂K = ½(ββᵀ − K⁻¹) with K⁻¹ = WᵀW in the config's
+        # wtw_precision: float64 by default, since in float32 the
+        # cancellation against ββᵀ biases d/dlog(k_scale). dK is contracted
+        # only against the symmetric ∂K/∂θ, so the symmetric-equivalent
+        # gauge applies
         dK = beta.unsqueeze(-1) * beta.unsqueeze(-2)
-        dK.sub_(W.mT @ W).mul_(0.5 * g[..., None, None])
+        dK.sub_(wtw_compensated(W, symmetric_consumer=True)).mul_(0.5 * g[..., None, None])
         ddiff = -g[..., None] * beta
         # failed factorizations yield zero, not NaN, cotangents
         dK = torch.nan_to_num_(dK, nan=0.0, posinf=0.0, neginf=0.0).to(K_dtype)
@@ -136,8 +207,12 @@ def mvn_log_prob_centered(K: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
     """log N(diff | 0, K + jitter·I) with a matmul-only backward
     (``linalg.py:174-243``): forward is one Cholesky, K2's blocked inverse
     and a matvec; backward is ½g(ββᵀ − WᵀW), β = Wᵀα,
-    with non-finite outputs zeroed. Both run in float64 and return K's and
-    diff's dtypes. The per-leapfrog op of NUTS over GP hyperparameters."""
+    with non-finite outputs zeroed. Both run in float64, but for WᵀW in the
+    config's ``wtw_precision`` (:func:`wtw_compensated`), and return K's and
+    diff's dtypes. Under ``"compensated"`` WᵀW and the
+    ``"symmetric_equivalent"`` gauge, dK is not symmetric: only its
+    symmetric part is K's cotangent. The per-leapfrog op of NUTS over GP
+    hyperparameters."""
     return _MVNLogProb.apply(K, diff)
 
 

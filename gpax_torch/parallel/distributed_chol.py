@@ -17,13 +17,14 @@ constraints; torch has no such partitioner, so the split is explicit.
 
 The leaf is the port's own factor path: ``cholesky_ex`` and
 ``blocked_trtri`` (K2 on a CUDA tensor), in float64 whatever K's dtype, as
-the config's ``wtw_precision="float64"`` rule makes every factor
-(``ops/linalg.py``). A factorization that fails yields NaN, as in JAX, so
+every factor of the port is (``ops/linalg.py``). A factorization that fails yields NaN, as in JAX, so
 the jitter escalation of :func:`make_sharded_mvn_log_prob` composes.
 
 ``make_sharded_mvn_log_prob`` wraps the factorization into the NUTS
 likelihood with the closed-form matmul-only backward of
-``ops.linalg.mvn_log_prob_centered``, its WᵀW split over the mesh too. It
+``ops.linalg.mvn_log_prob_centered``, its WᵀW split over the mesh too, in
+the config's ``wtw_precision`` and ``mvn_dk_gauge`` (a symmetric consumer,
+as ``distributed_chol.py:175-179``). It
 is taken by ``MultivariateNormal.log_prob`` inside ``with
 sharded_linalg(mesh):``, for one matrix and one vector; ExactGP's fused
 likelihood steps aside there.
@@ -38,7 +39,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.chol import blocked_trtri
-from ..ops.linalg import _add_diag, _eps, _escalated_jitter
+from ..ops.linalg import _add_diag, _eps, _escalated_jitter, wtw_compensated
 from ..utils.utils import host_bool
 from .mesh import Mesh
 
@@ -74,13 +75,13 @@ def active_sharded_linalg():
 # Split recursive factorization
 # ---------------------------------------------------------------------------
 
-def _mm(A: torch.Tensor, B: torch.Tensor, devices) -> torch.Tensor:
-    """A·B with A's rows split over ``devices`` (B copied to each), gathered
-    on the first."""
+def _mm(A: torch.Tensor, B: torch.Tensor, devices, product=torch.matmul) -> torch.Tensor:
+    """product(A, B) (A·B) with A's rows split over ``devices`` (B copied to
+    each), gathered on the first."""
     if len(devices) == 1:
-        return A @ B
+        return product(A, B)
     home = devices[0]
-    parts = [(a.to(d) @ B.to(d)).to(home)
+    parts = [product(a.to(d), B.to(d)).to(home)
              for a, d in zip(torch.tensor_split(A, len(devices)), devices)]
     return torch.cat(parts, 0)
 
@@ -176,9 +177,12 @@ class _ShardedMVNLogProb(torch.autograd.Function):
         W = torch.where(torch.isfinite(W), W, 0.0)
         alpha = torch.where(torch.isfinite(alpha), alpha, 0.0)
         beta = W.mT @ alpha
-        # ∂logp/∂K = ½(ββᵀ − K⁻¹), K⁻¹ = WᵀW split by Wᵀ's rows
+        # ∂logp/∂K = ½(ββᵀ − K⁻¹), K⁻¹ = WᵀW split by Wᵀ's rows, in the
+        # config's wtw_precision; dK meets only symmetric ∂K/∂θ
         dK = beta[:, None] * beta[None, :]
-        dK.sub_(_mm(W.mT, W, devices)).mul_(0.5 * g)
+        dK.sub_(wtw_compensated(W, symmetric_consumer=True,
+                                matmul=lambda a, b, product: _mm(a, b, devices, product))
+                ).mul_(0.5 * g)
         return (dK.to(K_device, K_dtype), (-g * beta).to(diff_device, diff_dtype),
                 None, None)
 
@@ -189,8 +193,8 @@ def make_sharded_mvn_log_prob(mesh: Mesh, axis_name: Optional[str] = None,
     factorization and backward are split over ``mesh``. The numerics of
     ``ops.linalg.mvn_log_prob_centered``: the θ-independent base jitter
     4·n·eps (eps of K's dtype), the escalated jitter where that factor
-    fails, float64 factors and WᵀW, and zero cotangents from a
-    factorization that fails even so."""
+    fails, float64 factors, WᵀW in the config's ``wtw_precision``, and zero
+    cotangents from a factorization that fails even so."""
     devices = mesh.device_list()
 
     def log_prob(K: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:

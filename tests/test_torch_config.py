@@ -31,14 +31,24 @@ def test_set_config_repins_after_user_change():
 
 @pytest.mark.parametrize("field", ["gram_precision", "wtw_precision"])
 def test_only_highest_precision_is_ported(field):
-    """Each precision field has one ported mode: the fp32 gram ("highest")
-    and the float64 factor path and WᵀW ("float64")."""
-    mode = {"gram_precision": "highest", "wtw_precision": "float64"}[field]
-    assert getattr(get_config(), field) == mode
-    for other in ("compensated", "highest" if mode == "float64" else "float64"):
-        with pytest.raises(NotImplementedError):
+    """Each precision field keeps the port's default ("highest" gram,
+    "float64" WᵀW), takes every mode of the JAX package (and the port's
+    "float64" WᵀW), and refuses any other value with ValueError."""
+    default, accepted, refused = {
+        "gram_precision": ("highest", ("compensated", "highest"), ("float64", "default")),
+        "wtw_precision": ("float64", ("highest", "compensated", "default", "float64"),
+                          ("bf16", None)),
+    }[field]
+    assert getattr(get_config(), field) == default
+    try:
+        for mode in accepted:
+            assert getattr(set_config(**{field: mode}), field) == mode
+    finally:
+        set_config(**{field: default})
+    for other in refused:
+        with pytest.raises(ValueError):
             set_config(**{field: other})
-    assert getattr(get_config(), field) == mode
+    assert getattr(get_config(), field) == default
 
 
 @pytest.mark.parametrize("kernel", ["RBF", "Matern", "Periodic"])

@@ -12,6 +12,7 @@ import torch
 
 import gpax_torch
 from gpax_torch.ops import chol, fused_density, gram, linalg, panel_chol
+from gpax_torch.ppl import initialize_model
 from gpax_torch.utils import initialize_inducing_points
 
 pytestmark = pytest.mark.cuda
@@ -141,6 +142,137 @@ def test_exactgp_x64_fit_launches_float64_k1(dev):
         assert mean.dtype == torch.float64 and bool(torch.isfinite(mean).all())
     finally:
         gpax_torch.enable_x64(False)
+
+
+EPS32 = float(torch.finfo(torch.float32).eps)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "matern52"])
+@pytest.mark.parametrize("n,m,d,B", [(4096, 4096, 1, 1), (1000, 1000, 64, 1), (517, 333, 8, 3),
+                                     (64, 64, 70, 2), (300, 301, 1, 1), (299, 299, 3, 1),
+                                     (40, 77, 1, 3), (17, 17, 2, 2), (1, 130, 1, 1),
+                                     (130, 1, 17, 1)])
+def test_k1_compensated_matches_twin(dev, kind, n, m, d, B):
+    """K1's compensated instantiation (``gpax_gram_f32c``, bf16 mma.sync)
+    against the compensated twin: one launch, counted apart. Both take
+    exact bf16 products and sum them in fp32 in other orders, and both
+    assemble r² from fp32 norms: 1e-6 plus 4·eps·(‖x‖² + ‖z‖²), the
+    rounding of r² on the diagonal. Against the "highest" K1, within the
+    JAX package's limits for the dropped lo·lo term (5e-4 RBF, 1e-3
+    Matérn; ``tests/test_pallas.py:81-100``). Cases off the tile and the
+    16-feature depth: ragged rows and columns, d = 17, 64 and 70."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    Xs = torch.randn((B, n, d), generator=g, device=dev) / d**0.5 * 2.0
+    same = n == m
+    Zs = Xs if same else torch.randn((B, m, d), generator=g, device=dev) / d**0.5 * 2.0
+    nz = torch.rand((B, n), generator=g, device=dev)
+    before, before_comp = gram.launches, gram.launches_comp
+    out = gram.gram_unscaled(Xs, Zs, nz, kind, same, "compensated")
+    assert (gram.launches, gram.launches_comp) == (before + 1, before_comp + 1)
+    ref = gram.gram_twin(Xs, Zs, nz, kind, same, "compensated")
+    norms = (Xs * Xs).sum(-1).max().item() + (Zs * Zs).sum(-1).max().item()
+    assert (out - ref).abs().max().item() <= 1e-6 + 4 * EPS32 * norms
+    hi = gram.gram_unscaled(Xs, Zs, nz, kind, same, "highest")
+    assert (out - hi).abs().max().item() <= (5e-4 if kind == "rbf" else 1e-3)
+
+
+def test_k1_compensated_mode_is_float32_only_and_counted(dev):
+    """A float64 gram under "compensated" launches the float64
+    instantiation; ``gram`` reads the config's gram_precision; the
+    compensated gram's gradient is the fp32 closed form of the CPU."""
+    X64 = torch.rand((1, 64, 2), device=dev, dtype=torch.float64)
+    before64, before_comp = gram.launches_f64, gram.launches_comp
+    out = gram.gram_unscaled(X64, X64, torch.zeros((1, 64), device=dev, dtype=torch.float64),
+                             "rbf", True, "compensated")
+    assert out.dtype == torch.float64
+    assert (gram.launches_f64, gram.launches_comp) == (before64 + 1, before_comp)
+    rng = np.random.default_rng(1)
+    X = torch.tensor(rng.normal(size=(300, 8)), dtype=torch.float32)
+    grads = []
+    try:
+        gpax_torch.set_config(gram_precision="compensated")
+        for device in ("cpu", dev):
+            p = [torch.tensor(v, device=device, requires_grad=True)
+                 for v in ([0.8] * 8, 1.5, 0.2)]
+            Xd = X.to(device)
+            before_comp = gram.launches_comp
+            torch.sin(gram.gram(Xd, Xd, *p)).sum().backward()
+            assert gram.launches_comp == before_comp + (device != "cpu")
+            grads.append([q.grad.cpu() for q in p])
+    finally:
+        gpax_torch.set_config(gram_precision="highest")
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["float64", "highest", "compensated", "default"])
+@pytest.mark.parametrize("gauge", ["exact", "symmetric_equivalent"])
+@pytest.mark.parametrize("shape", [(1024,), (2, 512)])
+def test_wtw_modes_on_card_match_their_twins(dev, mode, gauge, shape):
+    """``linalg.wtw_compensated`` on the card (bf16 products with fp32
+    results, ``out_dtype``) against the same call on the CPU (fp32 products
+    of the bf16 values): both exact per product, fp32 sums, so within 1e-5
+    of max|WᵀW| (float64 within 1e-12). The compensated products keep their
+    fp32 results: "compensated" within 5e-5 of max|WᵀW| of the float64 WᵀW
+    (hi + lo carries W to 2⁻¹⁶ relative, so the split's error is at most
+    3·2⁻¹⁶ ≈ 4.6e-5 of the diagonal; bf16 results would be off by ~2⁻⁹),
+    where one bf16 pass ("default") is off by more than 1e-3."""
+    n = shape[-1]
+    g = torch.Generator().manual_seed(n)
+    A = torch.randn(shape[:-1] + (n, n), generator=g, dtype=torch.float64)
+    K = A @ A.mT / n + 0.5 * torch.eye(n, dtype=torch.float64)
+    W = torch.linalg.inv(torch.linalg.cholesky(K))
+    try:
+        gpax_torch.set_config(wtw_precision=mode, mvn_dk_gauge=gauge)
+        for sym in (False, True):
+            cpu = linalg.wtw_compensated(W, sym)
+            card = linalg.wtw_compensated(W.to(dev), sym)
+            assert card.dtype == torch.float64 and card.device.type == "cuda"
+            scale = cpu.abs().max().item()
+            tol = 1e-12 if mode == "float64" else 1e-5
+            assert (card.cpu() - cpu).abs().max().item() <= tol * scale
+        exact = (W.mT @ W).abs().max().item()
+        err = (linalg.wtw_compensated(W.to(dev)).cpu() - W.mT @ W).abs().max().item()
+        if mode == "compensated":
+            assert err <= 5e-5 * exact
+        if mode == "default":
+            assert err > 1e-3 * exact
+    finally:
+        gpax_torch.set_config(wtw_precision="float64", mvn_dk_gauge="symmetric_equivalent")
+
+
+def test_exactgp_potential_launches_only_compensated_k1(dev):
+    """ExactGP's composed potential under gram_precision="compensated"
+    launches the compensated K1 and no other, and its value and gradient
+    under the compensated WᵀW agree with the CPU's within 5e-3 of the
+    largest, as chip_smoke.py's potential check: the card's and the twin's
+    grams differ by ~1e-6, which κ(K) ≤ n·k_scale/noise ~ 1.4e3 amplifies."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(-1, 1, (256, 1)).astype(np.float32)
+    y = np.sin(3 * X[:, 0]).astype(np.float32)
+    out = []
+    try:
+        gpax_torch.set_config(gram_precision="compensated", wtw_precision="compensated",
+                              use_fused_likelihood="never")
+        for device in ("cpu", dev):
+            gp = gpax_torch.ExactGP(1, "RBF")
+            Xd, yd = gp._set_data(X, y, device=device)
+            info = initialize_model(gp.model, torch.Generator(device=device).manual_seed(0),
+                                    (Xd, yd))
+            z = {k: torch.tensor(v, device=device, requires_grad=True)
+                 for k, v in (("k_length", [-0.7]), ("k_scale", 0.2), ("noise", -1.5))}
+            before, before_comp = gram.launches, gram.launches_comp
+            u = info.potential_fn(z)
+            grads = torch.autograd.grad(u, list(z.values()))
+            if device != "cpu":
+                assert gram.launches - before == gram.launches_comp - before_comp > 0
+            out.append([u.detach().cpu()] + [v.cpu() for v in grads])
+    finally:
+        gpax_torch.set_config(gram_precision="highest", wtw_precision="float64",
+                              use_fused_likelihood="auto")
+    cpu, card = (torch.cat([v.reshape(-1) for v in o]) for o in out)
+    assert abs(card[0] - cpu[0]) <= 5e-3 * abs(cpu[0])
+    assert (card[1:] - cpu[1:]).abs().max() <= 5e-3 * cpu[1:].abs().max()
 
 
 @pytest.mark.parametrize("n,B", [(128, 1), (1000, 2), (2048, 1)])

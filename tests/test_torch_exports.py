@@ -73,3 +73,32 @@ def test_top_level_names():
               "gamma_dist", "uniform_dist"):
         assert n in gpax_torch.utils.__all__
     assert gpax_torch.ops.tri_solve is not None
+
+
+# the JAX Config's fields that the port leaves out, with the reason: the port
+# picks kernels by device and pins fp32 matmuls (gpax_torch/config.py)
+CONFIG_OMITTED = {
+    "matmul_precision": "fp32 matmuls are pinned; no XLA precision knob",
+    "use_pallas": "K1 launches on a CUDA tensor, its twin runs on a CPU tensor",
+    "pallas_min_elems": "no size threshold chooses K1",
+    "use_pallas_chol": "K2/K3 launch on a CUDA tensor, their twins run on a CPU tensor",
+    "pallas_chol_min_n": "no size threshold chooses K2/K3",
+}
+
+
+def test_config_fields_match_the_reference():
+    """Every field of gpax_tpu's Config is a field of the port's Config, or
+    one of the named omissions, which set_config refuses with its reason."""
+    import dataclasses
+
+    import gpax_tpu.config as jconfig
+    from gpax_torch import config as tconfig
+
+    jfields = {f.name for f in dataclasses.fields(jconfig.Config)}
+    tfields = {f.name for f in dataclasses.fields(tconfig.Config)}
+    assert set(CONFIG_OMITTED) <= jfields
+    assert not (jfields - tfields - set(CONFIG_OMITTED)), jfields - tfields
+    assert not (tfields & set(CONFIG_OMITTED))
+    for name in CONFIG_OMITTED:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tconfig.set_config(**{name: getattr(jconfig.Config(), name)})
