@@ -101,9 +101,10 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     and float64 factors of the chains' last draws; then vExactGP (4 tasks
     × 1024 points, 2 lockstep chains, 100 + 50, depth 5), its launches
     counted and K1/K2 held against their twins on its (2·4, 1024, 1024)
-    grams and factors; then VarNoiseGP (n = 128, 50 + 50, depth 5) and
-    UIGP (n = 128, 50 + 50, depth 6), MeasuredNoiseGP (n = 256, 100 + 100, noise predicted by LinReg and
-    by viGP), iBNN (n = 512, d = 8, 100 + 100, depth 7) and vi_iBNN (n =
+    grams and factors; then VarNoiseGP (n = 128, 10 + 10, depth 4) and
+    UIGP (n = 128, 10 + 10, depth 5), MeasuredNoiseGP (n = 256, 10 + 10,
+    noise predicted by LinReg and by viGP), iBNN (n = 512, d = 8,
+    10 + 10, depth 5) and vi_iBNN (n =
     2048, d = 8, 500 steps), each fitted and predicted with its seconds,
     leapfrogs or steps, divergences, K1/K2 launches and finite outputs;
 11. drives the viSparseGP path at BASELINE config 3 (bench.py's data and
@@ -194,11 +195,29 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
 23. runs examples/hypothesis_learning.py's workflow: linear and quadratic
     hypotheses of 1.5x² − 0.5 on a 512-point grid, 8 points measured to
     start, 4 rounds of ``hypo.step`` on the bandit's pick (eps-greedy;
-    100 + 100 draws; sPM, then the hypothesis as an ExactGP's mean, in
+    50 + 50 draws; sPM, then the hypothesis as an ExactGP's mean, in
     turns), checking each reward vector's shape and sign, K1/K2 launches
     on the GP-wrapped rounds, that both hypotheses were fitted and that the
     quadratic's mean reward beats the linear's;
-24. prints a JSON line of the kernels K1-K5, K1's float64 instantiation
+24. runs the examples phase: each script of examples_torch/ (the port's
+    forms of examples/*.py) under SMOKE=1 as ``main(device=cuda)``, the
+    NUTS scripts with ``nuts=dict(num_warmup=10, num_samples=10,
+    max_tree_depth=5)``, its result finite; then the simpleGP (48 points,
+    200 + 200 at depth 10), viGP sparse-image (600 steps), viSparseGP (400
+    points, 800 steps) and viDKL active-learning (600 steps) workflows of
+    examples_torch/golden.py (the gates of
+    tests/test_torch_examples_golden.py) at full size, each held to its
+    band; each script and workflow prints its seconds and, by model
+    class, its fits' seconds, leapfrogs and ms a leapfrog (or SVI steps
+    and ms a step) and K1-K5 launches, and each model class must launch
+    the kernels it reaches (K1 and K2 for every GP, K2 alone for iBNN, K1
+    and K3 for viSparseGP, none for sPM); K1, K2 and K3 are held against
+    their twins on the first call of each distinct shape the script or
+    workflow hands them; then times heteroskedastic_gp.py's VarNoiseGP fit
+    at the JAX depth of 10 (50 warmup steps at depth 5, then 5 draws in
+    one timed segment) and prints what the JAX script's SMOKE budget (200
+    draws of 906.5 leapfrogs) would take at its ms a leapfrog;
+25. prints a JSON line of the kernels K1-K5, K1's float64 instantiation
     ("gram_f64") and its compensated one ("gram_comp") (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
@@ -211,8 +230,10 @@ refuses to run without CUDA.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
+import runpy
 import subprocess
 import sys
 import time
@@ -379,19 +400,63 @@ CKPT_POINTS, CKPT_CPU_DRAWS = 256, 4
 CKPT_RTOL, CKPT_CARD_CPU_TOL = 1e-5, BO_CHECK_TOL
 # hypothesis learning (examples/hypothesis_learning.py): the grid, the
 # points measured to start, the rounds and each fit's draws (cut from 200 +
-# 200 for the run's limit: the phase took 105 s on an NVIDIA H100 80GB HBM3
-# at 700 W)
+# 200 to 100 + 100 for the run's limit, the phase then 49.90 s on an NVIDIA
+# H100 80GB HBM3 at 700 W; when the examples phase came, which runs
+# hypothesis_learning.py too, to 50 + 50, 32.91 s). Four rounds: each
+# hypothesis is fitted both as sPM and as a GP's mean, so the closing
+# reward comparison does not confound the hypothesis with the wrap mode
 HYPO_GRID, HYPO_START, HYPO_ROUNDS = 512, 8, 4
-HYPO_WARMUP, HYPO_SAMPLES = 100, 100
+HYPO_WARMUP, HYPO_SAMPLES = 50, 50
 # vExactGP: 4 tasks of 1024 points, 2 lockstep chains
 # (draws cut from 100 + 100 to 100 + 50, depth from 7 to 5, in PR 11)
 VGP_TASKS, VGP_N, VGP_CHAINS, VGP_SAMPLES, VGP_DEPTH = 4, 1024, 2, 50, 5
-# the slice-6 models: (n, warmup, samples, depth) of each NUTS fit
-VARNOISE_FIT = (128, 50, 50, 5)   # depth cut from 6 to 5 in PR 11
-UIGP_FIT = (128, 50, 50, 6)
-MNGP_FIT = (256, 100, 100)        # MeasuredNoiseGP.fit has no depth option: 10
-IBNN_FIT = (512, 8, 100, 100, 7)  # n, d, warmup, samples, depth
+# the slice-6 models: (n, warmup, samples, depth) of each NUTS fit, cut
+# for the run's limit when the examples phase came, which fits the same
+# models at small n (the phase took 109.64 s on an NVIDIA H100 80GB HBM3 at
+# 700 W at 50 + 50 and depth 5, 50 + 50 and depth 6, 100 + 100 and depth
+# 10, 100 + 100 and depth 7; 58.83-62.37 s at 25 + 25, the whole run
+# 1167.96 s on a slow host)
+VARNOISE_FIT = (128, 10, 10, 4)
+UIGP_FIT = (128, 10, 10, 5)
+MNGP_FIT = (256, 10, 10)          # MeasuredNoiseGP.fit has no depth option: 10
+IBNN_FIT = (512, 8, 10, 10, 5)    # n, d, warmup, samples, depth
 VIIBNN_FIT = (2048, 8, 500)       # n, d, SVI steps
+# the examples phase: the scripts of examples_torch/ under SMOKE=1 with
+# this cut of every NUTS fit (the JAX budgets are 50-150 + 50-150 draws at
+# depth 10; at 50 + 50 and depth 5 the scripts took 170 s of a 276.18 s
+# phase on an NVIDIA H100 80GB HBM3 at 700 W, at 25 + 25 108 s of 221.59,
+# at 20 + 20 the whole run 1167.96 s on a slow host;
+# the SVI scripts take no ``nuts``), and the golden workflows of
+# examples_torch/golden.py at their full sizes, budgets and depth, each
+# held to its band
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+EXAMPLE_SCRIPTS = ("simple_gp", "vigp_sparse_image", "gp_bo", "vidkl_active_learning",
+                   "multitask_bo", "hypothesis_learning", "sparse_gp_reconstruction",
+                   "heteroskedastic_gp", "uncertain_inputs", "measured_noise_gp",
+                   "compare_gps", "structured_gp")
+EXAMPLE_SVI_SCRIPTS = ("vigp_sparse_image", "vidkl_active_learning", "sparse_gp_reconstruction")
+EXAMPLE_NUTS_CUT = dict(num_warmup=10, num_samples=10, max_tree_depth=5)
+# the kernels each model class must launch in a script or workflow: K1 and
+# K2 on the GPs' grams and factors, K2 alone on iBNN's NNGP gram, K1 and K3
+# on viSparseGP's, none on sPM (no GP)
+EXAMPLE_KERNELS = {
+    "ExactGP": ("gram", "trtri"), "MultiTaskGP": ("gram", "trtri"),
+    "VarNoiseGP": ("gram", "trtri"), "UIGP": ("gram", "trtri"),
+    "MeasuredNoiseGP": ("gram", "trtri"), "viGP": ("gram", "trtri"),
+    "viDKL": ("gram", "trtri"), "DKL": ("gram", "trtri"), "iBNN": ("trtri",),
+    "viSparseGP": ("gram", "cholinv"), "sPM": ()}
+# the model entry points whose launches, seconds, leapfrogs and SVI steps
+# are counted to their model class
+SPY_METHODS = ("fit", "predict", "predict_in_batches", "predict_moments",
+               "sample_from_prior", "embed")
+# heteroskedastic_gp.py's fit (VarNoiseGP, SMOKE data) at the JAX depth of
+# 10: HSK_DRAWS timed draws after HSK_WARMUP warmup steps at depth
+# HSK_WARMUP_DEPTH, in segments of HSK_DRAWS (after 30 warmup steps the
+# draws' trees ran ~20 % deeper; 10 draws took 63.75-71.2 s, cut to 5 for
+# the run's limit); the JAX package's SMOKE fit of it takes 906.5
+# leapfrogs a draw on 100 + 100 draws (on the CPU)
+HSK_WARMUP, HSK_DRAWS, HSK_WARMUP_DEPTH, HSK_DEPTH = 50, 5, 5, 10
+HSK_JAX_LEAPFROGS_PER_DRAW, HSK_JAX_DRAWS = 906.5, 200
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W): HBM
 # bytes/s, and the highest FLOP/s the card offers for each dtype without a
@@ -768,13 +833,18 @@ def twin_chol_inv(K):
 
 
 @contextlib.contextmanager
-def captured(module, name: str):
+def captured(module, name: str, first_per_shape: bool = False):
     """The arguments of every call of ``module.name`` (a kernel's wrapper)
-    while the block runs, as the path's own code makes them."""
-    calls, fn = [], getattr(module, name)
+    while the block runs, as the path's own code makes them; with
+    ``first_per_shape``, of the first call of each distinct set of shapes,
+    dtypes and other arguments only."""
+    calls, seen, fn = [], set(), getattr(module, name)
 
     def capture(*args):
-        calls.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        key = tuple((tuple(a.shape), a.dtype) if torch.is_tensor(a) else a for a in args)
+        if not (first_per_shape and key in seen):
+            seen.add(key)
+            calls.append(tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args))
         return fn(*args)
 
     setattr(module, name, capture)
@@ -2912,6 +2982,228 @@ def hypo_path() -> dict:
     return launched
 
 
+class ModelSpy:
+    """While the block runs, counts the K1-K5 launches, seconds, fits,
+    leapfrogs and SVI steps of every model entry point (SPY_METHODS of the
+    port's model classes) to the class of the model it was called on; an
+    entry point called inside another counts to the outer one. ``paths()``
+    gives the launches by class, and those made outside any entry point
+    apart."""
+
+    def __init__(self):
+        self.by_model = {}
+        self.models = {}  # the last model of each class an entry point ran on
+        self._depth = 0
+        self._saved = []
+
+    def __enter__(self):
+        for cls in vars(gpax_torch.models).values():
+            if not isinstance(cls, type):
+                continue
+            for name in SPY_METHODS:
+                if name in vars(cls):
+                    self._saved.append((cls, name, vars(cls)[name]))
+                    setattr(cls, name, self._wrap(vars(cls)[name], name))
+        reset_counts()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in reversed(self._saved):
+            setattr(cls, name, fn)
+        self._saved.clear()
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.total = counts()
+
+    def _wrap(self, fn, name):
+        spy = self
+
+        @functools.wraps(fn)
+        def entry(model, *args, **kwargs):
+            if spy._depth:
+                return fn(model, *args, **kwargs)
+            spy._depth += 1
+            before, t0 = counts(), time.perf_counter()
+            try:
+                return fn(model, *args, **kwargs)
+            finally:
+                spy._depth -= 1
+                torch.cuda.synchronize()
+                spy._record(model, name, before, time.perf_counter() - t0)
+        return entry
+
+    def _record(self, model, name, before, seconds):
+        rec = self.by_model.setdefault(type(model).__name__, {
+            "launches": {k: 0 for k in before}, "calls": 0, "fits": 0, "fit_s": 0.0,
+            "leapfrogs": 0, "svi_steps": 0})
+        after = counts()
+        for k in before:
+            rec["launches"][k] += after[k] - before[k]
+        rec["calls"] += 1
+        self.models[type(model).__name__] = model
+        if name == "fit":
+            rec["fits"] += 1
+            rec["fit_s"] += seconds
+            mcmc = getattr(model, "mcmc", None)
+            loss = getattr(model, "loss", None)
+            if mcmc is not None:
+                rec["leapfrogs"] += mcmc.num_leapfrogs
+            elif loss is not None:
+                rec["svi_steps"] += loss.shape[-1]
+
+    def paths(self) -> dict:
+        """The launches by model class, and those outside the entry points
+        (if any) under "outside model entry points"."""
+        out = {cls: rec["launches"] for cls, rec in self.by_model.items()}
+        outside = {k: self.total[k] - sum(c[k] for c in out.values()) for k in self.total}
+        if any(outside.values()):
+            out["outside model entry points"] = outside
+        return out
+
+    def summary(self) -> dict:
+        """Wall seconds, and by model class its fits' seconds, leapfrogs and
+        ms a leapfrog, or SVI steps and ms a step, and its launches."""
+        models = {}
+        for cls, rec in self.by_model.items():
+            m = {**rec, "launches": {k: v for k, v in rec["launches"].items() if v}}
+            if rec["leapfrogs"]:
+                m["ms_per_leapfrog"] = 1e3 * rec["fit_s"] / rec["leapfrogs"]
+            if rec["svi_steps"]:
+                m["ms_per_svi_step"] = 1e3 * rec["fit_s"] / rec["svi_steps"]
+            models[cls] = m
+        return {"s": self.wall_s, "models": models}
+
+    def require(self, path: str) -> None:
+        """Each model class launched the kernels EXAMPLE_KERNELS names."""
+        for cls, rec in self.by_model.items():
+            if cls not in EXAMPLE_KERNELS:
+                fail(f"{path}: no required kernels are set for model class {cls}")
+            require_launches(path, {cls: rec["launches"]}, EXAMPLE_KERNELS[cls])
+
+
+@contextlib.contextmanager
+def path_kernel_calls():
+    """The first call of each distinct shape of K1's, K2's and K3's wrappers
+    while the block runs: (grams, factors, leaves)."""
+    with captured(gram, "gram_unscaled", True) as grams, \
+            captured(chol, "tile_tri_inv", True) as factors, \
+            captured(chol, "tile_chol_inv", True) as leaves:
+        yield grams, factors, leaves
+
+
+def compare_path_calls(label: str, calls) -> None:
+    """K1, K2 and K3 against their twins on a path's captured calls: K2 on
+    each float64 factor as the path padded it, with ExactGP's predict
+    tolerances."""
+    grams, factors, leaves = calls
+    with torch.no_grad():
+        k1_compare_calls(label, grams)
+        k2_compare_calls(label, factors, [L.shape[-1] for L, in factors])
+        for i, (A,) in enumerate(leaves):
+            k3_compare(f"{label} leaf {i} B={A.shape[0]}", A)
+
+
+def run_example(label: str, name: str, dev, **kwargs):
+    """examples_torch/<name>.py under SMOKE=1: ``main(device=dev, **kwargs)``
+    under a ModelSpy, then K1-K3 against their twins on the calls it made.
+    Returns (its result, the spy)."""
+    old = os.environ.get("SMOKE")
+    os.environ["SMOKE"] = "1"
+    try:
+        ns = runpy.run_path(os.path.join(EXAMPLES_DIR, f"{name}.py"), run_name="examples_torch")
+        with path_kernel_calls() as calls, ModelSpy() as spy:
+            result = ns["main"](device=dev, **kwargs)
+    finally:
+        if old is None:
+            del os.environ["SMOKE"]
+        else:
+            os.environ["SMOKE"] = old
+    compare_path_calls(label, calls)
+    if not spy.by_model:
+        fail(f"{label}: no model entry point ran")
+    return result, spy
+
+
+def example_script(name: str, dev) -> dict:
+    """examples_torch/<name>.py under SMOKE=1 as ``main(device=dev)``, with
+    ``nuts=EXAMPLE_NUTS_CUT`` for a NUTS script; its result finite and its
+    launches counted by model class."""
+    label = f"example {name}"
+    kwargs = {} if name in EXAMPLE_SVI_SCRIPTS else {"nuts": EXAMPLE_NUTS_CUT}
+    result, spy = run_example(label, name, dev, **kwargs)
+    values = np.asarray(list(result.values()) if isinstance(result, dict) else result,
+                        dtype=float)
+    if not np.isfinite(values).all():
+        fail(f"{label}: non-finite result {result!r}")
+    print(f"{label}: " + json.dumps({**spy.summary(), "result": values.tolist()}), flush=True)
+    spy.require(label)
+    return spy.paths()
+
+
+def golden_workflow(label: str, run) -> dict:
+    """One golden workflow of examples_torch/golden.py: ``run()`` under a
+    ModelSpy returns its gates {name: (value, passed, band)}; K1-K3 are
+    held against their twins on the calls it made."""
+    with path_kernel_calls() as calls, ModelSpy() as spy:
+        gates = run()
+    compare_path_calls(f"golden {label}", calls)
+    print(f"golden {label}: " + json.dumps({**spy.summary(), "gates": gates}), flush=True)
+    for name, (value, passed, band) in gates.items():
+        if not passed:
+            fail(f"golden {label}: {name} {value} outside its band {band}")
+    spy.require(f"golden {label}")
+    return spy.paths()
+
+
+def deep_tree_timing(dev) -> dict:
+    """heteroskedastic_gp.py's SMOKE fit at the JAX depth: HSK_WARMUP warmup
+    steps at depth HSK_WARMUP_DEPTH, then HSK_DRAWS draws at depth HSK_DEPTH
+    (one segment, timed), and what the JAX script's own budget would cost
+    at the leapfrogs a draw of the JAX package's fit."""
+    label = "heteroskedastic_gp depth 10"
+    _, spy = run_example(label, "heteroskedastic_gp", dev, nuts=dict(
+        num_warmup=HSK_WARMUP, num_samples=HSK_DRAWS, max_tree_depth=HSK_DEPTH,
+        segment_size=HSK_DRAWS, warmup_depth_cap=(HSK_WARMUP_DEPTH, HSK_WARMUP)))
+    mcmc = spy.models["VarNoiseGP"].mcmc
+    st = mcmc.get_extra_fields()
+    draws_s, draws_leapfrogs = float(st["segment_wall_s"][-1]), int(st["segment_leapfrogs"][-1])
+    ms = 1e3 * draws_s / max(draws_leapfrogs, 1)
+    summary = {
+        **spy.summary(), "warmup_leapfrogs": mcmc.num_leapfrogs - draws_leapfrogs,
+        "draws": HSK_DRAWS, "draws_s": draws_s, "draws_leapfrogs": draws_leapfrogs,
+        "leapfrogs_per_draw": draws_leapfrogs / HSK_DRAWS, "ms_per_leapfrog": ms,
+        "step_size": float(st["step_size"][-1]),
+        "accept_mean": float(st["accept_prob"].mean()),
+        "jax_leapfrogs_per_draw": HSK_JAX_LEAPFROGS_PER_DRAW,
+        "jax_smoke_budget_s_at_this_ms": HSK_JAX_DRAWS * HSK_JAX_LEAPFROGS_PER_DRAW * ms / 1e3}
+    print(f"{label}: " + json.dumps(summary), flush=True)
+    if not (draws_leapfrogs > 0 and np.isfinite(ms)):
+        fail(f"{label}: no timed draws")
+    spy.require(label)
+    return spy.paths()
+
+
+def examples_path(dev) -> dict:
+    """The examples phase: every script of examples_torch/ on the card, the
+    four golden workflows, and heteroskedastic_gp.py's fit at depth 10; one
+    entry of paths each."""
+    paths = {}
+    for name in EXAMPLE_SCRIPTS:
+        paths[f"example {name}"] = example_script(name, dev)
+        torch.cuda.empty_cache()
+    golden = runpy.run_path(os.path.join(EXAMPLES_DIR, "golden.py"))
+    workflows = {
+        "simple_gp": lambda: golden["simple_gp_gates"](golden["simple_gp_fit"](dev), dev),
+        "vigp_sparse_image": lambda: golden["vigp_sparse_image"](dev),
+        "visparsegp_reconstruction": lambda: golden["visparsegp_reconstruction"](dev),
+        "vidkl_active_learning": lambda: golden["vidkl_active_learning"](dev)}
+    for label, run in workflows.items():
+        paths[f"golden {label}"] = golden_workflow(label, run)
+    paths["heteroskedastic_gp depth 10"] = deep_tree_timing(dev)
+    return paths
+
+
 @contextlib.contextmanager
 def phase(name: str):
     """Print the wall time of the block."""
@@ -3016,6 +3308,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("hypothesis learning"):
         paths["hypothesis learning"] = hypo_path()
+    torch.cuda.empty_cache()
+    with phase("examples"):
+        paths.update(examples_path(dev))
 
     def launches(k):
         by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}

@@ -11,6 +11,7 @@ predictive covariance only, as the JAX package does.
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
@@ -61,7 +62,14 @@ class MeasuredNoiseGP(ExactGP):
             progress_bar: bool = True, print_summary: bool = True, device=None,
             **kwargs) -> None:
         """NUTS over the kernel hyperparameters on ``device`` (None: the CUDA
-        card) with the measured noise variances (n,) on the diagonal."""
+        card) with the measured noise variances (n,) on the diagonal.
+        ``**kwargs`` go to the model's kernel (``jitter``); a sampler option
+        of ExactGP.fit that this fit does not take raises TypeError, where
+        the JAX package hands it on to the kernel, which ignores it."""
+        refused = sorted(set(kwargs) & _EXACTGP_FIT_ONLY)
+        if refused:
+            raise TypeError(f"MeasuredNoiseGP.fit takes no {', '.join(refused)}: its NUTS "
+                            "runs at fixed settings, as in the JAX package")
         X, y = self._set_data(X, y, device)
         measured_noise = torch.as_tensor(measured_noise, dtype=self.dtype,
                                          device=X.device).squeeze()
@@ -130,3 +138,8 @@ class MeasuredNoiseGP(ExactGP):
         vigp = viGP(self.kernel_dim, "RBF")
         vigp.fit(keys[0], x, y, progress_bar=False, print_summary=False, device=x.device)
         return vigp.predict(keys[1], x_new, noiseless=True, device=x.device)[0]
+
+
+# ExactGP.fit's sampler options that MeasuredNoiseGP.fit does not take
+_EXACTGP_FIT_ONLY = frozenset(inspect.signature(ExactGP.fit).parameters) - frozenset(
+    inspect.signature(MeasuredNoiseGP.fit).parameters)

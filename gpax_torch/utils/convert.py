@@ -26,9 +26,11 @@ def samples_from_numpy(samples: Dict[str, np.ndarray], device=None,
     (S, T, …)) as the port's dict of tensors on ``device``. With
     ``chain_dim``, the arrays are grouped by chain, (C, S, …) as
     ``get_samples(chain_dim=True)`` gives them, and are flattened to
-    (C·S, …), the draws that ``predict`` takes."""
+    (C·S, …), the draws that ``predict`` takes. The tensors own their
+    memory: arrays read from JAX are read-only, and a tensor sharing such a
+    buffer would be written in place at undefined behaviour."""
     dtype = resolve_dtype(dtype)
-    out = {k: torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+    out = {k: torch.as_tensor(np.array(v), dtype=dtype, device=device)
            for k, v in samples.items()}
     if chain_dim:
         out = {k: v.reshape((-1,) + v.shape[2:]) for k, v in out.items()}
