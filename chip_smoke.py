@@ -217,7 +217,24 @@ with a CUDA card, nvcc and PyTorch built for CUDA. It
     at the JAX depth of 10 (50 warmup steps at depth 5, then 5 draws in
     one timed segment) and prints what the JAX script's SMOKE budget (200
     draws of 906.5 leapfrogs) would take at its ms a leapfrog;
-25. prints a JSON line of the kernels K1-K5, K1's float64 instantiation
+25. runs the notebooks phase: three of the port's notebooks
+    (examples_torch/notebooks/, the forms of examples/notebooks/) through
+    examples_torch/notebook_runner.py on the card, their ``DEVICE`` left
+    None and their budgets cut in the ``parameters`` cell (NOTEBOOK_RUNS):
+    simple_gp_tutorial.ipynb (two ExactGP NUTS fits, 100 + 100 of its 500
+    + 500 at depth 10, default and Gamma(2, 5) lengthscale priors, predict,
+    its closing ``rmse < 0.5``), contrib/dkl_molecular_active_learning.ipynb
+    (viDKL on 600 × 288 one-hot descriptors: a 400-step fit, ``embed``,
+    ``predict_in_batches``, then 5 of its 15 active-learning steps of
+    300-step refits, its closing ``rmse_trace[-1] < 1.0``) and
+    simple_gp.ipynb under SMOKE=1 at the examples phase's cut; each
+    notebook's every cell must run, each model class must launch its
+    kernels with its training data on the card, and K1-K3 are held against
+    their twins on the first call of each distinct shape; each prints its
+    seconds, its model classes' leapfrogs or SVI steps and ms each, its
+    launches, its results and how many plot cells ran (none where the host
+    lacks matplotlib, which it prints);
+26. prints a JSON line of the kernels K1-K5, K1's float64 instantiation
     ("gram_f64") and its compensated one ("gram_comp") (time, twin time, library time,
     bound, launches on every path; K4's and K5's phase splits on the fit's gram),
     the card's line, and as the last line
@@ -231,6 +248,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib.util
 import json
 import os
 import runpy
@@ -436,6 +454,21 @@ EXAMPLE_SCRIPTS = ("simple_gp", "vigp_sparse_image", "gp_bo", "vidkl_active_lear
                    "compare_gps", "structured_gp")
 EXAMPLE_SVI_SCRIPTS = ("vigp_sparse_image", "vidkl_active_learning", "sparse_gp_reconstruction")
 EXAMPLE_NUTS_CUT = dict(num_warmup=10, num_samples=10, max_tree_depth=5)
+# the notebooks phase: the port's notebooks (examples_torch/notebooks/) through
+# examples_torch/notebook_runner.py on the card (DEVICE left None), each with
+# its parameters, whether it runs under SMOKE=1, and the names of its
+# namespace printed as its results. The cuts, set in the parameters cell: the
+# tutorial's two NUTS fits from 500 + 500 to 100 + 100 draws (depth 10 kept),
+# the contrib notebook's active learning from 15 to 5 steps (its fits' 400
+# and 300 SVI steps uncut), simple_gp.ipynb at the examples phase's cut
+NOTEBOOKS_DIR = os.path.join(EXAMPLES_DIR, "notebooks")
+NOTEBOOK_RUNS = (
+    ("simple_gp_tutorial.ipynb", {"NUTS": dict(num_warmup=100, num_samples=100)}, False,
+     ("rmse", "summary")),
+    ("contrib/dkl_molecular_active_learning.ipynb", {"AL_STEPS": 5}, False,
+     ("rmse_trace", "found")),
+    ("simple_gp.ipynb", {"NUTS": EXAMPLE_NUTS_CUT}, True, ("result",)),
+)
 # the kernels each model class must launch in a script or workflow: K1 and
 # K2 on the GPs' grams and factors, K2 alone on iBNN's NNGP gram, K1 and K3
 # on viSparseGP's, none on sPM (no GP)
@@ -3104,21 +3137,28 @@ def compare_path_calls(label: str, calls) -> None:
             k3_compare(f"{label} leaf {i} B={A.shape[0]}", A)
 
 
-def run_example(label: str, name: str, dev, **kwargs):
-    """examples_torch/<name>.py under SMOKE=1: ``main(device=dev, **kwargs)``
-    under a ModelSpy, then K1-K3 against their twins on the calls it made.
-    Returns (its result, the spy)."""
+@contextlib.contextmanager
+def smoke_env(smoke: bool):
+    """SMOKE=1 (or 0) in the environment while the block runs."""
     old = os.environ.get("SMOKE")
-    os.environ["SMOKE"] = "1"
+    os.environ["SMOKE"] = "1" if smoke else "0"
     try:
-        ns = runpy.run_path(os.path.join(EXAMPLES_DIR, f"{name}.py"), run_name="examples_torch")
-        with path_kernel_calls() as calls, ModelSpy() as spy:
-            result = ns["main"](device=dev, **kwargs)
+        yield
     finally:
         if old is None:
             del os.environ["SMOKE"]
         else:
             os.environ["SMOKE"] = old
+
+
+def run_example(label: str, name: str, dev, **kwargs):
+    """examples_torch/<name>.py under SMOKE=1: ``main(device=dev, **kwargs)``
+    under a ModelSpy, then K1-K3 against their twins on the calls it made.
+    Returns (its result, the spy)."""
+    with smoke_env(True):
+        ns = runpy.run_path(os.path.join(EXAMPLES_DIR, f"{name}.py"), run_name="examples_torch")
+        with path_kernel_calls() as calls, ModelSpy() as spy:
+            result = ns["main"](device=dev, **kwargs)
     compare_path_calls(label, calls)
     if not spy.by_model:
         fail(f"{label}: no model entry point ran")
@@ -3202,6 +3242,46 @@ def examples_path(dev) -> dict:
         paths[f"golden {label}"] = golden_workflow(label, run)
     paths["heteroskedastic_gp depth 10"] = deep_tree_timing(dev)
     return paths
+
+
+def notebook_run(name: str, parameters: dict, smoke: bool, results) -> dict:
+    """examples_torch/notebooks/<name> through the notebook runner on the
+    card (its DEVICE left None) with ``parameters`` injected, under a
+    ModelSpy: every cell, its closing assertions included, must run; each
+    model class launches its kernels with its training data on the card,
+    K1-K3 are held against their twins on the calls it made, and
+    ``results`` (names of its namespace) must be finite."""
+    label = f"notebook {name}"
+    runner = runpy.run_path(os.path.join(EXAMPLES_DIR, "notebook_runner.py"))
+    with smoke_env(smoke), path_kernel_calls() as calls, ModelSpy() as spy:
+        ns = runner["run_notebook"](os.path.join(NOTEBOOKS_DIR, name), parameters)
+    compare_path_calls(label, calls)
+    if not spy.by_model:
+        fail(f"{label}: no model entry point ran")
+    for cls, model in spy.models.items():
+        if model.X_train.device.type != "cuda":
+            fail(f"{label}: {cls}'s training data on {model.X_train.device}")
+    values = {k: ns[k] for k in results}
+    flat = np.concatenate([np.ravel(np.asarray(list(v.values()) if isinstance(v, dict) else v,
+                                               dtype=float)) for v in values.values()])
+    if not np.isfinite(flat).all():
+        fail(f"{label}: non-finite results {values!r}")
+    print(f"{label}: " + json.dumps({**spy.summary(), "parameters": parameters,
+                                     "cells": ns["__notebook__"], "results": values}),
+          flush=True)
+    spy.require(label)
+    return spy.paths()
+
+
+def notebooks_path() -> dict:
+    """The notebooks phase: NOTEBOOK_RUNS on the card, one entry of paths
+    each; first which notebook packages the host has (the runner needs
+    none of them; without matplotlib it leaves the plot cells out)."""
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("matplotlib", "nbformat", "nbclient", "ipykernel")}
+    print("notebook packages: " + json.dumps(have), flush=True)
+    return {f"notebook {name}": notebook_run(name, parameters, smoke, results)
+            for name, parameters, smoke, results in NOTEBOOK_RUNS}
 
 
 @contextlib.contextmanager
@@ -3311,6 +3391,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     with phase("examples"):
         paths.update(examples_path(dev))
+    torch.cuda.empty_cache()
+    with phase("notebooks"):
+        paths.update(notebooks_path())
 
     def launches(k):
         by_path = {p: sum(c[k] for c in v.values()) for p, v in paths.items()}
