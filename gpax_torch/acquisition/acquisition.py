@@ -12,6 +12,9 @@ gradient of every posterior draw; ``Thompson`` draws one function.
 The candidates go to the device of the model's training data, or to
 ``device`` when given, which is then passed on to ``predict*`` with the
 other keyword arguments (``samples``, ``jitter``, …).
+
+Each call is the root span ``gpax.acq.<name>`` while a profiler runs
+(``utils.monitor.span``): the spans of the factors it makes carry its id.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.monitor import spanned
 from ..utils.utils import resolve_device
 from .base_acq import ei, key_on, kg, poi, ucb, ue
 from .penalties import compute_penalty
@@ -68,6 +72,7 @@ def _moment_acq(rng_key, model, X, n, noiseless, penalty, recent_points, grid_in
     return _penalized(acq, X, penalty, recent_points, grid_indices, penalty_factor)
 
 
+@spanned("gpax.acq.EI", root=True)
 def EI(rng_key, model, X, best_f: Optional[float] = None, maximize: bool = False,
        n: int = 1, noiseless: bool = False, penalty: Optional[str] = None,
        recent_points=None, grid_indices=None, penalty_factor: float = 1.0,
@@ -78,6 +83,7 @@ def EI(rng_key, model, X, best_f: Optional[float] = None, maximize: bool = False
                        penalty_factor, device, kwargs, lambda mo: ei(mo, best_f, maximize))
 
 
+@spanned("gpax.acq.UCB", root=True)
 def UCB(rng_key, model, X, beta: float = 0.25, maximize: bool = False, n: int = 1,
         noiseless: bool = False, penalty: Optional[str] = None, recent_points=None,
         grid_indices=None, penalty_factor: float = 1.0, device=None,
@@ -87,6 +93,7 @@ def UCB(rng_key, model, X, beta: float = 0.25, maximize: bool = False, n: int = 
                        penalty_factor, device, kwargs, lambda mo: ucb(mo, beta, maximize))
 
 
+@spanned("gpax.acq.POI", root=True)
 def POI(rng_key, model, X, best_f: Optional[float] = None, xi: float = 0.01,
         maximize: bool = False, n: int = 1, noiseless: bool = False,
         penalty: Optional[str] = None, recent_points=None, grid_indices=None,
@@ -96,6 +103,7 @@ def POI(rng_key, model, X, best_f: Optional[float] = None, xi: float = 0.01,
                        penalty_factor, device, kwargs, lambda mo: poi(mo, best_f, xi, maximize))
 
 
+@spanned("gpax.acq.UE", root=True)
 def UE(rng_key, model, X, n: int = 1, noiseless: bool = False,
        penalty: Optional[str] = None, recent_points=None, grid_indices=None,
        penalty_factor: float = 1.0, device=None, **kwargs) -> torch.Tensor:
@@ -104,6 +112,7 @@ def UE(rng_key, model, X, n: int = 1, noiseless: bool = False,
                        penalty_factor, device, kwargs, ue)
 
 
+@spanned("gpax.acq.KG", root=True)
 def KG(rng_key, model, X, n: int = 1, maximize: bool = False, noiseless: bool = False,
        penalty: Optional[str] = None, recent_points=None, grid_indices=None,
        penalty_factor: float = 1.0, device=None, **kwargs) -> torch.Tensor:
@@ -122,6 +131,7 @@ def KG(rng_key, model, X, n: int = 1, maximize: bool = False, noiseless: bool = 
     return _penalized(acq, X, penalty, recent_points, grid_indices, penalty_factor)
 
 
+@spanned("gpax.acq.Thompson", root=True)
 def Thompson(rng_key, model, X, n: int = 1, noiseless: bool = False, device=None,
              **kwargs) -> torch.Tensor:
     """Thompson sampling: the function draw of one random posterior draw, or

@@ -169,7 +169,7 @@ def find_reasonable_step_size(potential_grad: Callable, z: torch.Tensor,
     moving = torch.ones_like(grow)
     for _ in range(100):
         moving = moving & torch.where(grow, lp > log_half, lp < log_half)
-        if not host_bool(moving.any()):
+        if not host_bool(moving.any(), "step_size"):
             break
         eps = torch.where(moving, eps * torch.where(grow, 2.0, 0.5), eps)
         lp = torch.where(moving, accept_logprob(eps), lp)

@@ -20,8 +20,12 @@ chain dim, all chains advance the same leaf index, and a chain that has
 U-turned or diverged is frozen by its mask while the others go on, its
 leapfrogs computed with theirs and discarded. The tree's stop test reads one
 flag to the host per lockstep leapfrog (has every chain stopped?), plus one
-U-turn flag per completed doubling; every read is counted by
-``utils.host_syncs``. One chain is the case C = 1
+U-turn flag per completed doubling, and one read of the segment's tree sizes
+after its synchronize; every read is counted by ``utils.host_syncs``. While
+a profiler runs, each transition is the root span ``gpax.nuts.transition``,
+each call of the potential and its gradient (the initial one, the step-size
+search's and every leapfrog's) ``gpax.potential_grad``, and each read
+``gpax.host_read.<site>`` (``utils.monitor.span``). One chain is the case C = 1
 (:func:`run_nuts_segmented`, on an unbatched potential).
 
 Both runners take the plan in segments of transitions with a per-segment
@@ -41,7 +45,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from ..utils.utils import host_bool
+from ..utils.monitor import span, spanned
+from ..utils.utils import host_bool, host_read
 from .hmc_util import (
     da_init,
     da_update,
@@ -157,7 +162,7 @@ def _build_subtree(potential_grad, depth, z0, r0, grad0, eps_signed, inv_mass,
         # a point of finite energy to run its discarded leapfrogs from
         z, r, g = _where(live, z1, z), _where(live, r1, r), _where(live, g1, g)
         n += 1
-        if not host_bool(live.any()):
+        if not host_bool(live.any(), "nuts_subtree"):
             all_stopped = True
             break
     return {"n": n_leaves, "z": z, "r": r, "grad": g, "z_prop": z_prop, "grad_prop": g_prop,
@@ -214,7 +219,7 @@ def nuts_step(potential_grad: Callable, state: NUTSState, max_depth: int = 10,
         r_sum = _where(ok, r_sum + sub["r_sum"], r_sum)
         # U-turn across the merged tree
         active = ok & ~_is_turning(inv_mass, left[1], right[1], r_sum, dense)
-        if not host_bool(active.any()):
+        if not host_bool(active.any(), "nuts_doubling"):
             break
     # one chain's leaves are the lockstep count, a host int: ATen divides a
     # card tensor by a host scalar as a product with its reciprocal, which
@@ -479,6 +484,7 @@ def _run_lockstep(potential_grad, z0, rng_key, num_warmup, num_samples, segment_
     ``potential_grad`` maps (C, dim) to ((C,), (C, dim))."""
     if segment_size < 1:
         raise ValueError(f"segment_size must be at least 1, got {segment_size}")
+    potential_grad = spanned("gpax.potential_grad")(potential_grad)
     (C, dim), dtype, device = z0.shape, z0.dtype, z0.device
     inv_mass = (torch.eye(dim, dtype=dtype, device=device) if dense_mass
                 else torch.ones(dim, dtype=dtype, device=device)).expand(
@@ -508,34 +514,36 @@ def _run_lockstep(potential_grad, z0, rng_key, num_warmup, num_samples, segment_
         t0 = time.perf_counter()
         lockstep = 0
         for i in range(lo, hi):
-            warm, warm_next, in_win, win_end, cap = (x[i] for x in xs)
-            state = nuts_step(potential_grad, state, max_tree_depth, cap, dense_mass)
-            lockstep += state.lockstep_steps
-            if warm:  # dual averaging only advances during warmup
-                da = da_update(da, state.accept_prob, target_accept_prob)
-                da_steps += 1
-            # the live DA iterate while warming up, the averaged one once
-            # sampling (the live one if no update ever happened)
-            log_eps = da.log_step if warm_next or da_steps == 0 else da.log_step_avg
-            state = state._replace(step_size=torch.exp(log_eps))
-            if in_win:
-                wf = welford_update(wf, state.z)
-            if win_end:
-                state = state._replace(inv_mass=welford_variance(wf))
-                da, da_steps = da_init(torch.exp(da.log_step)), 0
-                wf = welford_init(dim, dtype, dense=dense_mass, device=device,
-                                  batch_shape=(C,))
-            zs.append(state.z)
-            stats["accept_prob"].append(state.accept_prob)
-            stats["num_steps"].append(state.num_steps)
-            stats["diverging"].append(state.diverging)
-            stats["potential_energy"].append(state.potential)
-            stats["step_size"].append(state.step_size)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        seg_wall.append(time.perf_counter() - t0)
-        seg_leapfrogs.append(int(torch.stack(stats["num_steps"][lo:hi]).sum())
-                             if hi > lo else 0)
+            with span("gpax.nuts.transition", root=True):
+                warm, warm_next, in_win, win_end, cap = (x[i] for x in xs)
+                state = nuts_step(potential_grad, state, max_tree_depth, cap, dense_mass)
+                lockstep += state.lockstep_steps
+                if warm:  # dual averaging only advances during warmup
+                    da = da_update(da, state.accept_prob, target_accept_prob)
+                    da_steps += 1
+                # the live DA iterate while warming up, the averaged one once
+                # sampling (the live one if no update ever happened)
+                log_eps = da.log_step if warm_next or da_steps == 0 else da.log_step_avg
+                state = state._replace(step_size=torch.exp(log_eps))
+                if in_win:
+                    wf = welford_update(wf, state.z)
+                if win_end:
+                    state = state._replace(inv_mass=welford_variance(wf))
+                    da, da_steps = da_init(torch.exp(da.log_step)), 0
+                    wf = welford_init(dim, dtype, dense=dense_mass, device=device,
+                                      batch_shape=(C,))
+                zs.append(state.z)
+                stats["accept_prob"].append(state.accept_prob)
+                stats["num_steps"].append(state.num_steps)
+                stats["diverging"].append(state.diverging)
+                stats["potential_energy"].append(state.potential)
+                stats["step_size"].append(state.step_size)
+        with host_read("nuts_segment"):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            seg_wall.append(time.perf_counter() - t0)
+            seg_leapfrogs.append(int(torch.stack(stats["num_steps"][lo:hi]).sum())
+                                 if hi > lo else 0)
         seg_lockstep.append(lockstep)
         done = hi
         if progress:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.monitor import span
 from . import build
 
 TILE = 128
@@ -102,19 +103,21 @@ def _trtri_rec(L: torch.Tensor, W: torch.Tensor, lo: int, hi: int) -> None:
 def blocked_trtri(L: torch.Tensor) -> torch.Tensor:
     """W = L⁻¹ for lower-triangular L (…, n, n): K2 on the diagonal tiles,
     matmuls everywhere else. Not differentiable on its own (callers wrap it,
-    see ``ops.linalg.mvn_log_prob_centered``)."""
-    batch, n = L.shape[:-2], L.shape[-1]
-    Lb = L.reshape(-1, n, n)
-    n_pad = -(-n // TILE) * TILE
-    if n_pad != n:
-        Lp = Lb.new_zeros((Lb.shape[0], n_pad, n_pad))
-        Lp[:, :n, :n] = Lb
-        Lp[:, n:, n:].diagonal(dim1=-2, dim2=-1).fill_(1.0)
-    else:
-        Lp = Lb.contiguous()
-    W = tile_tri_inv(Lp)
-    _trtri_rec(Lp, W, 0, n_pad)
-    return W[:, :n, :n].reshape(batch + (n, n))
+    see ``ops.linalg.mvn_log_prob_centered``). The span ``gpax.inverse``
+    covers it: K2, its zero fill of W and the recursion's products."""
+    with span("gpax.inverse"):
+        batch, n = L.shape[:-2], L.shape[-1]
+        Lb = L.reshape(-1, n, n)
+        n_pad = -(-n // TILE) * TILE
+        if n_pad != n:
+            Lp = Lb.new_zeros((Lb.shape[0], n_pad, n_pad))
+            Lp[:, :n, :n] = Lb
+            Lp[:, n:, n:].diagonal(dim1=-2, dim2=-1).fill_(1.0)
+        else:
+            Lp = Lb.contiguous()
+        W = tile_tri_inv(Lp)
+        _trtri_rec(Lp, W, 0, n_pad)
+        return W[:, :n, :n].reshape(batch + (n, n))
 
 
 def tile_chol_inv_twin(A: torch.Tensor) -> torch.Tensor:

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import get_config
+from ..utils.monitor import span
 from ..utils.utils import host_bool
 from .chol import blocked_trtri, chol_inv
 
@@ -74,20 +75,25 @@ def _chol_tri_factors_ld(K: torch.Tensor, base_jitter: Optional[float] = 0.0
     on the host: one host sync per factorization (per batch of matrices),
     accepted for now and counted by ``utils.host_syncs``. W comes from
     ``blocked_trtri``: K2 on the diagonal tiles, float64 matmuls elsewhere.
+    The whole is the span ``gpax.factor``, the refactorization
+    ``gpax.factor.retry`` (``utils.monitor.span``).
     """
-    n = K.shape[-1]
-    eps = _eps(K.dtype)
-    K = K.to(torch.float64)
-    K_base = K if base_jitter is None else _add_diag(K, max(4.0 * n * eps, base_jitter))
-    L, info = torch.linalg.cholesky_ex(K_base)
-    bad = info != 0
-    if host_bool(bad.any()):
-        L_big, info_big = torch.linalg.cholesky_ex(_add_diag(K, _escalated_jitter(K, eps)))
-        # a factorization that fails even so yields NaN, as in JAX
-        L_big = torch.where((info_big != 0)[..., None, None], torch.nan, L_big)
-        L = torch.where(bad[..., None, None], L_big, L)
-    ld = torch.log(torch.abs(L.diagonal(dim1=-2, dim2=-1))).sum(-1)
-    return L, blocked_trtri(L), ld
+    with span("gpax.factor"):
+        n = K.shape[-1]
+        eps = _eps(K.dtype)
+        K = K.to(torch.float64)
+        K_base = K if base_jitter is None else _add_diag(K, max(4.0 * n * eps, base_jitter))
+        L, info = torch.linalg.cholesky_ex(K_base)
+        bad = info != 0
+        if host_bool(bad.any(), "factor_info"):
+            with span("gpax.factor.retry"):
+                L_big, info_big = torch.linalg.cholesky_ex(
+                    _add_diag(K, _escalated_jitter(K, eps)))
+                # a factorization that fails even so yields NaN, as in JAX
+                L_big = torch.where((info_big != 0)[..., None, None], torch.nan, L_big)
+                L = torch.where(bad[..., None, None], L_big, L)
+        ld = torch.log(torch.abs(L.diagonal(dim1=-2, dim2=-1))).sum(-1)
+        return L, blocked_trtri(L), ld
 
 
 def chol_tri_factors(K: torch.Tensor, base_jitter: float = 0.0
@@ -148,29 +154,31 @@ def wtw_compensated(W: torch.Tensor, symmetric_consumer: bool = False,
 
     The bf16 products go through :func:`bf16_matmul`. ``matmul(a, b,
     product)``, where given, computes ``product(a, b)`` for each product (the
-    mesh's row split in ``parallel/distributed_chol.py``)."""
-    cfg = get_config()
-    mode = cfg.wtw_precision
-    if matmul is None:
-        def matmul(a, b, product):
-            return product(a, b)
-    if mode == "float64":
-        W64 = W.to(torch.float64)
-        return matmul(W64.mT, W64, torch.matmul).to(W.dtype)
-    Wf = W.to(torch.float32)
-    if mode == "highest":
-        return matmul(Wf.mT, Wf, torch.matmul).to(W.dtype)
-    if mode == "default":
-        hi = Wf.to(torch.bfloat16)
-        return matmul(hi.mT, hi, bf16_matmul).to(W.dtype)
-    if mode != "compensated":
-        raise ValueError(f"wtw_precision={mode!r}")
-    hi, lo = split_bf16(Wf)
-    main = matmul(hi.mT, hi, bf16_matmul)
-    cross = matmul(hi.mT, lo, bf16_matmul)
-    if symmetric_consumer and cfg.mvn_dk_gauge == "symmetric_equivalent":
-        return main.add_(cross, alpha=2.0).to(W.dtype)
-    return main.add_(cross + cross.mT).to(W.dtype)
+    mesh's row split in ``parallel/distributed_chol.py``). The span
+    ``gpax.wtw`` covers it."""
+    with span("gpax.wtw"):
+        cfg = get_config()
+        mode = cfg.wtw_precision
+        if matmul is None:
+            def matmul(a, b, product):
+                return product(a, b)
+        if mode == "float64":
+            W64 = W.to(torch.float64)
+            return matmul(W64.mT, W64, torch.matmul).to(W.dtype)
+        Wf = W.to(torch.float32)
+        if mode == "highest":
+            return matmul(Wf.mT, Wf, torch.matmul).to(W.dtype)
+        if mode == "default":
+            hi = Wf.to(torch.bfloat16)
+            return matmul(hi.mT, hi, bf16_matmul).to(W.dtype)
+        if mode != "compensated":
+            raise ValueError(f"wtw_precision={mode!r}")
+        hi, lo = split_bf16(Wf)
+        main = matmul(hi.mT, hi, bf16_matmul)
+        cross = matmul(hi.mT, lo, bf16_matmul)
+        if symmetric_consumer and cfg.mvn_dk_gauge == "symmetric_equivalent":
+            return main.add_(cross, alpha=2.0).to(W.dtype)
+        return main.add_(cross + cross.mT).to(W.dtype)
 
 
 class _MVNLogProb(torch.autograd.Function):

@@ -151,7 +151,7 @@ def _factor(K: torch.Tensor, devices, leaf: int) -> Tuple[torch.Tensor, torch.Te
     n, eps = K.shape[-1], _eps(K.dtype)
     K64 = K.to(devices[0], torch.float64)
     L, W = _chol_inv64(_add_diag(K64, 4.0 * n * eps), devices, leaf)
-    if not host_bool(torch.isfinite(L).all()):
+    if not host_bool(torch.isfinite(L).all(), "distributed_factor"):
         L, W = _chol_inv64(_add_diag(K64, _escalated_jitter(K64, eps)), devices, leaf)
     return L, W
 

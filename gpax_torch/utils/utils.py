@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from ..config import enable_x64  # re-exported, as gpax.utils.enable_x64
+from .monitor import span
 
 __all__ = ["enable_x64", "get_keys", "spawn", "resolve_device", "split_in_batches", "split_dict",
            "random_sample_dict", "dviz", "device_memory_budget", "host_bool", "host_syncs", "reset_host_syncs",
@@ -120,12 +121,22 @@ def device_memory_budget(device: Optional[torch.device] = None,
     return default
 
 
-def host_bool(flag: torch.Tensor) -> bool:
+def host_read(site: str):
+    """Count one blocking read of device values by the host
+    (:func:`host_syncs`) and return the span that covers it,
+    ``gpax.host_read.<site>`` (``monitor.span``): ``with host_read("nuts_segment"):
+    ...``. The site names the place in the program that waits."""
+    _host_reads[0] += 1
+    return span("gpax.host_read." + site)
+
+
+def host_bool(flag: torch.Tensor, site: str) -> bool:
     """Read a device flag on the host. On a CUDA tensor this waits for the
     device to produce it and stalls the launch queue, so every read is
-    counted (:func:`host_syncs`)."""
-    _host_reads[0] += 1
-    return bool(flag)
+    counted (:func:`host_syncs`) and spanned at its ``site``
+    (:func:`host_read`)."""
+    with host_read(site):
+        return bool(flag)
 
 
 def host_syncs() -> int:
