@@ -752,7 +752,8 @@ def _spd_factor(n: int, B: int, seed: int, dev, dtype) -> torch.Tensor:
 
 
 def twin_trtri(L: torch.Tensor) -> torch.Tensor:
-    """blocked_trtri with the twin in place of K2 (n a multiple of 128)."""
+    """W = L⁻¹ by the twin's tiles and the TPU's per-node recursion, the
+    reference for blocked_trtri's tiles and levels (n a multiple of 128)."""
     L = L.contiguous()
     W = chol.tile_tri_inv_twin(L)
     chol._trtri_rec(L, W, 0, L.shape[-1])

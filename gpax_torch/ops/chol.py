@@ -6,17 +6,22 @@ Counterpart of ``gpax_tpu/ops/chol.py``: ``blocked_trtri`` on K2
 (``_tile_chol_inv_kernel``, ``_chol_inv_rec``, ``_pad_spd``, the custom VJP).
 
 W = L⁻¹ is built as on the TPU: identity padding to a multiple of TILE, the
-inverses of the diagonal tiles, then the recursion W21 = −W22·(L21·W11) in
-``torch.matmul`` (TF32 off), in L's dtype: float32 as on the TPU, or the
-float64 of the factor path in ``ops/linalg.py``. Unlike the TPU, all diagonal
-tiles of all matrices in the batch are inverted by ONE K2 launch
-(``gpax_torch/csrc/trtri.cu``) before the recursion starts, since each leaf
+inverses of the diagonal tiles, then W21 = −W22·(L21·W11) on each pair of
+blocks (TF32 off), in L's dtype: float32 as on the TPU, or the float64 of the
+factor path in ``ops/linalg.py``. Unlike the TPU, all diagonal tiles of all
+matrices in the batch are inverted by ONE K2 launch
+(``gpax_torch/csrc/trtri.cu``) before the products start, since each leaf
 depends only on L's own diagonal tile.
 
 ``chol_inv`` cannot do the same: each leaf of its recursion factors the
 Schur complement left by the leaves before it, so an m-matrix takes
 ⌈m/128⌉ K3 launches (``gpax_torch/csrc/cholinv.cu``) in order, each covering
 the current leaf of every matrix in the batch.
+
+Nor do W's products follow the TPU's recursion (``chol.py:259-267``,
+``_trtri_rec`` here), which visits its nodes one at a time: they run level by
+level from the tiles up (``_trtri_levels``), and the independent nodes of a
+level share one strided batch.
 """
 
 from __future__ import annotations
@@ -30,6 +35,8 @@ TILE = 128
 
 launches = 0  # K2 launches in this process (the twin never counts)
 chol_inv_launches = 0  # K3 launches in this process (the twin never counts)
+trtri_gemms = 0  # products of blocked_trtri's levels in this process, on any device
+trtri_batched_levels = 0  # of those levels, the ones run as one strided batch over nodes
 
 # the C entries of K2 and K3 for each dtype they take
 _ENTRIES = {torch.float32: "gpax_tile_tri_inv_f32", torch.float64: "gpax_tile_tri_inv_f64"}
@@ -89,7 +96,9 @@ def tile_tri_inv(L: torch.Tensor) -> torch.Tensor:
 
 def _trtri_rec(L: torch.Tensor, W: torch.Tensor, lo: int, hi: int) -> None:
     """Fill W's strictly-lower blocks in [lo, hi) in place, given its
-    diagonal tiles (the recursion of ``chol.py:259-267``)."""
+    diagonal tiles: the recursion of ``chol.py:259-267``, depth first, one
+    node at a time. The reference that the tests and ``chip_smoke.py``'s
+    twin hold ``_trtri_levels`` to."""
     n = hi - lo
     if n <= TILE:
         return
@@ -100,11 +109,52 @@ def _trtri_rec(L: torch.Tensor, W: torch.Tensor, lo: int, hi: int) -> None:
                              @ (L[:, mid:hi, lo:mid] @ W[:, lo:mid, lo:mid]))
 
 
+def _trtri_levels(L: torch.Tensor, W: torch.Tensor) -> None:
+    """Fill W's strictly-lower blocks in place, given its diagonal tiles; L
+    and W contiguous (B, n, n), n a multiple of TILE.
+
+    Bottom up, for s = TILE, 2·TILE, …: the aligned blocks [a, a + s) and
+    [a + s, min(a + 2s, n)), a = 0, 2s, 4s, …, are paired, and each pair
+    gets W21 = −W22·(L21·W11). For n/TILE a power of two this is the
+    partition of ``_trtri_rec``; otherwise the last pair of a level is
+    uneven. A strided batch takes one stride, so a level batches either its
+    c full pairs, for each matrix (``as_strided`` views of L and W whose
+    batch stride, 2s·(n + 1), steps down the diagonal), or the B matrices,
+    for each pair: whichever of c and B is larger, the pairs on a tie. The
+    products write into W's views (``baddbmm_`` with β = 0, α = −1): no
+    copy and no negation pass."""
+    global trtri_gemms, trtri_batched_levels
+    B, n, _ = L.shape
+    s = TILE
+    while s < n:
+        c = n // (2 * s)
+        a0 = 0
+        if c >= B:
+            size, stride = (c, s, s), (2 * s * (n + 1), n, 1)
+            for b in range(B):
+                lo, wo = L.storage_offset() + b * n * n, W.storage_offset() + b * n * n
+                L21 = L.as_strided(size, stride, lo + s * n)
+                W11 = W.as_strided(size, stride, wo)
+                W21 = W.as_strided(size, stride, wo + s * n)
+                W22 = W.as_strided(size, stride, wo + s * (n + 1))
+                W21.baddbmm_(W22, torch.bmm(L21, W11), beta=0, alpha=-1)
+            trtri_gemms += 2 * B
+            trtri_batched_levels += 1
+            a0 = 2 * s * c
+        for a in range(a0, n - s, 2 * s):
+            m, e = a + s, min(a + 2 * s, n)
+            T = torch.bmm(L[:, m:e, a:m], W[:, a:m, a:m])
+            W[:, m:e, a:m].baddbmm_(W[:, m:e, m:e], T, beta=0, alpha=-1)
+            trtri_gemms += 2
+        s *= 2
+
+
 def blocked_trtri(L: torch.Tensor) -> torch.Tensor:
     """W = L⁻¹ for lower-triangular L (…, n, n): K2 on the diagonal tiles,
-    matmuls everywhere else. Not differentiable on its own (callers wrap it,
-    see ``ops.linalg.mvn_log_prob_centered``). The span ``gpax.inverse``
-    covers it: K2, its zero fill of W and the recursion's products."""
+    batched products everywhere else (``_trtri_levels``). Not differentiable
+    on its own (callers wrap it, see ``ops.linalg.mvn_log_prob_centered``).
+    The span ``gpax.inverse`` covers it: K2, its zero fill of W and the
+    levels' products."""
     with span("gpax.inverse"):
         batch, n = L.shape[:-2], L.shape[-1]
         Lb = L.reshape(-1, n, n)
@@ -116,7 +166,7 @@ def blocked_trtri(L: torch.Tensor) -> torch.Tensor:
         else:
             Lp = Lb.contiguous()
         W = tile_tri_inv(Lp)
-        _trtri_rec(Lp, W, 0, n_pad)
+        _trtri_levels(Lp, W)
         return W[:, :n, :n].reshape(batch + (n, n))
 
 

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_parity import assert_close, spd, value_and_grads
 from gpax_torch.ops import chol as tchol
@@ -55,6 +56,86 @@ def test_blocked_trtri_twin_in_float64_inverts(n):
     assert (W @ L - torch.eye(n, dtype=torch.float64)).abs().max().item() < 1e-12
     ref = torch.linalg.solve_triangular(L, torch.eye(n, dtype=torch.float64), upper=False)
     assert_close(W, ref, rtol=0, atol=1e-12 * ref.abs().max().item())
+
+
+def _tri_factor(B, n, dtype, seed):
+    """Lower-triangular (B, n, n): diagonal in [1, 2), strictly lower entries
+    uniform of variance 1/(4n), so κ(L) is a few; built without an n³ product."""
+    g = torch.Generator().manual_seed(seed)
+    a = (0.75 / n) ** 0.5
+    L = torch.empty((B, n, n), dtype=torch.float64).uniform_(-a, a, generator=g).tril_(-1)
+    L.diagonal(dim1=-2, dim2=-1).copy_(1.0 + torch.rand((B, n), generator=g, dtype=torch.float64))
+    return L.to(dtype)
+
+
+def _within(W, ref, dtype):
+    """float64: max|ΔW| ≤ 1e-12·max|W|; float32: the JAX-parity tolerance of
+    ``test_blocked_trtri_twin_matches_jax`` (rtol 1e-4, atol 1e-5·max|W|)."""
+    scale = max(r.abs().max().item() for r in ref)
+    for w, r in zip(W, ref):  # a matrix at a time: the batch of 5 at n = 4096 is 0.7 GB
+        d = (w - r).abs()
+        if dtype == torch.float64 and d.max().item() > 1e-12 * scale:
+            return False
+        if dtype == torch.float32 and not (d <= 1e-5 * scale + 1e-4 * r.abs()).all():
+            return False
+    return True
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 2, 5])
+@pytest.mark.parametrize("n", [128, 256, 384, 512, 2560, 4096, 200, 385])
+def test_trtri_levels_match_the_per_node_recursion_and_a_solve(n, B, dtype):
+    """blocked_trtri's level schedule against the TPU's per-node recursion
+    on the same tiles, and against ``solve_triangular``: powers of two of
+    tiles (the same partition), 3 and 20 tiles (uneven last pairs), two
+    padded n; batches on both sides of the node count (n = 4096, B = 5
+    batches nodes at 128 and 256, matrices above)."""
+    L = _tri_factor(B, n, dtype, seed=n + B)
+    W = tchol.blocked_trtri(L)
+    assert W.shape == (B, n, n) and W.dtype == dtype
+    n_pad = -(-n // tchol.TILE) * tchol.TILE
+    Lp = tchol._pad_spd(L, n_pad)
+    W_node = tchol.tile_tri_inv(Lp)
+    tchol._trtri_rec(Lp, W_node, 0, n_pad)
+    assert _within(W, W_node[:, :n, :n], dtype)
+    del W_node, Lp
+    eye = torch.eye(n, dtype=dtype)
+    assert _within(W, [torch.linalg.solve_triangular(m, eye, upper=False) for m in L], dtype)
+
+
+class _Ops(TorchDispatchMode):
+    """The aten ops dispatched inside the block, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("B,levels,gemms", [(1, 5, 10), (4, 3, 30), (100, 0, 62)])
+def test_trtri_levels_batch_the_larger_of_nodes_and_matrices(B, levels, gemms):
+    """At n = 4096 (32 tiles, levels of 16, 8, 4, 2 and 1 nodes), on meta
+    tensors: the fit's one matrix runs every level as one strided batch of
+    nodes, two products a level; EI's 100 draws run no level so, and launch
+    the per-node recursion's 2 × 31 products; 4 lockstep chains batch nodes
+    where a level has at least 4. No copy, no negation pass."""
+    L = torch.empty((B, 4096, 4096), dtype=torch.float64, device="meta")
+    W = torch.empty_like(L)
+    g0, l0 = tchol.trtri_gemms, tchol.trtri_batched_levels
+    with _Ops() as log:
+        tchol._trtri_levels(L, W)
+    assert (tchol.trtri_gemms - g0, tchol.trtri_batched_levels - l0) == (gemms, levels)
+    assert log.ops.count("bmm.default") + log.ops.count("baddbmm_.default") == gemms
+    assert set(log.ops) <= {"as_strided.default", "slice.Tensor", "bmm.default",
+                            "baddbmm_.default"}
+    with _Ops() as rec:
+        tchol._trtri_rec(L, W, 0, 4096)
+    assert rec.ops.count("bmm.default") == 62
+    if B == 1:  # four views and two products a level
+        assert len(log.ops) == 30
 
 
 def test_tile_twin_is_per_tile_solve_and_zero_off_tiles():

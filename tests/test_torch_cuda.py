@@ -312,6 +312,59 @@ def test_k2_float64_matches_twin_and_inverts(dev, n, B):
     assert (W @ L - eye).abs().max().item() < 1e-10
 
 
+def _per_node_trtri(L):
+    """The TPU's per-node recursion on K2's tiles: what blocked_trtri ran
+    before its level schedule."""
+    W = chol.tile_tri_inv(L)
+    chol._trtri_rec(L, W, 0, L.shape[-1])
+    return W
+
+
+def test_k2_levels_at_the_fits_shape_match_the_per_node_recursion(dev):
+    """(1, 4096, 4096) float64, the factor of an RBF gram with noise 1e-2 as
+    the n = 4096 fit has it: all 5 levels one strided batch of nodes, 10
+    products, no copy and no negation pass; W within 1e-12·max|W| of the
+    per-node recursion (the same partition: only the GEMMs' summation order
+    may differ), and ‖W·L − I‖ within rounding of the recursion's."""
+    g = torch.Generator(device=dev).manual_seed(4096)
+    x = torch.rand(4096, generator=g, device=dev, dtype=torch.float64) * 4 - 2
+    K = torch.exp(-0.5 * (x[:, None] - x[None, :]) ** 2 / 0.5**2)
+    K.diagonal().add_(1e-2)
+    L = torch.linalg.cholesky(K)[None].contiguous()
+    W_node = _per_node_trtri(L)
+    before = (chol.launches, chol.trtri_batched_levels, chol.trtri_gemms)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        W = chol.blocked_trtri(L)
+        torch.cuda.synchronize()
+    after = (chol.launches, chol.trtri_batched_levels, chol.trtri_gemms)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 5, 10)
+    ops = {e.key for e in prof.key_averages()}
+    assert not ops & {"aten::copy_", "aten::clone", "aten::neg", "aten::contiguous"}
+    scale = W_node.abs().max().item()
+    assert (W - W_node).abs().max().item() <= 1e-12 * scale
+    eye = torch.eye(4096, device=dev, dtype=torch.float64)
+    resid, resid_node = ((M[0] @ L[0] - eye).abs().max().item() for M in (W, W_node))
+    assert resid <= 1.1 * resid_node
+
+
+@pytest.mark.parametrize("dtype,rel,resid_tol", [(torch.float64, 1e-12, 1e-10),
+                                                 (torch.float32, 1e-5, 1e-3)])
+def test_k2_levels_batched_over_matrices_match_the_per_node_recursion(dev, dtype, rel,
+                                                                        resid_tol):
+    """(4, 1024, 1024): 8 tiles, so the first level batches its 4 nodes
+    and the two above it batch the 4 matrices, a node at a time (14
+    products). Against the per-node recursion on the same tiles and the
+    partition: float64 to 1e-12, float32 to 1e-5 of max|W| (GEMM rounding)."""
+    L = torch.linalg.cholesky(_spd_batch(4, 1024, dev, dtype, seed=1024)).contiguous()
+    W_node = _per_node_trtri(L)
+    before = (chol.trtri_batched_levels, chol.trtri_gemms)
+    W = chol.blocked_trtri(L)
+    assert (chol.trtri_batched_levels - before[0], chol.trtri_gemms - before[1]) == (1, 14)
+    assert (W - W_node).abs().max().item() <= rel * W_node.abs().max().item()
+    eye = torch.eye(1024, device=dev, dtype=dtype)
+    assert (W @ L - eye).abs().max().item() < resid_tol
+
+
 def test_k2_propagates_a_zero_pivot(dev):
     L = torch.eye(256, device=dev)[None].clone()
     L[0, 130, 130] = 0.0
